@@ -1,11 +1,12 @@
-"""dqmc_tpu — a TPU-native Determinant Quantum Monte Carlo framework.
+"""dqmc_tpu — a Determinant Quantum Monte Carlo framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of auxiliary-field DQMC for the
-attractive Hubbard model (capability reference: kfkq/DQMC, a C++17/MKL/MPI
-simulator).  The compute path is functional JAX: imaginary-time sweeps are
-jitted ``lax.scan``s, Monte-Carlo walkers are a ``vmap`` axis, chips are a
-``jax.sharding.Mesh`` axis, and parallel tempering rides ICI collectives
-(``ppermute``) instead of MPI point-to-point.
+A ground-up JAX/XLA/Pallas re-design of auxiliary-field DQMC for Hubbard
+models (capability reference: kfkq/DQMC, a C++17/MKL/MPI simulator).  The
+compute path is functional JAX: imaginary-time sweeps are jitted
+``lax.scan``s, Monte-Carlo walkers are a ``vmap`` axis, devices are a
+``jax.sharding.Mesh`` axis, and parallel tempering rides collectives
+(``ppermute``) instead of MPI point-to-point.  It runs on NVIDIA GPUs and,
+for tests, on the CPU (dqmc_tpu.platform decides what runs where).
 
 Package layout
 --------------

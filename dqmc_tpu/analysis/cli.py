@@ -24,7 +24,6 @@ import glob
 import os
 from typing import Dict, List
 
-import h5py
 import numpy as np
 
 from dqmc_tpu.analysis.jackknife import (jackknife, jackknife_array,
@@ -52,7 +51,7 @@ def _data_files(results_dir: str, pt_enabled: bool) -> List[str]:
     return files
 
 
-def _sorted_bins(f: h5py.File, prefix: str) -> List[str]:
+def _sorted_bins(f, prefix: str) -> List[str]:
     keys = [k for k in f.keys() if k.startswith(prefix)
             and k[len(prefix):].isdigit()]
     return sorted(keys, key=lambda k: int(k[len(prefix):]))
@@ -61,6 +60,8 @@ def _sorted_bins(f: h5py.File, prefix: str) -> List[str]:
 def load_bins(results_dir: str, pt_enabled: bool):
     """Returns (scalars, eq_r, eq_k, uneq_r, uneq_k): dicts name -> list of
     per-bin arrays, pooled over all files."""
+    import h5py
+
     scalars: Dict[str, list] = {}
     eq_r: Dict[str, list] = {}
     eq_k: Dict[str, list] = {}

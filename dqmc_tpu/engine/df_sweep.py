@@ -2,11 +2,10 @@
 
 The parity-grade production mode (NOTES.md roadmap).  Design: the
 Metropolis site loop and the slice-to-slice wraps stay on the fast f32
-path (identical kernels to engine/sweep.py — Pallas site updates,
-delayed rank-k, f32 GEMMs), while everything whose error ACCUMULATES
-across the sweep — the propagator block products, the LDR stack folds,
+path (the same site updates as engine/sweep.py, f32 GEMMs), while
+everything whose error ACCUMULATES across the sweep — the propagator block products, the LDR stack folds,
 and the stabilized inverses — is carried in df32 (double-float32,
-ops/df32 + ops/df_linalg, ~2^-46 from pure f32 TPU ops).
+ops/df32 + ops/df_linalg, ~2^-46 from pure f32 operations).
 
 Why this split is sound: between two stabilizations the f32 G drifts by
 at most ~1e-6 (a few hundred rank-1 updates + 2*n_stab GEMM wraps of
@@ -16,8 +15,7 @@ fires at 1e-6, dqmc.cpp:390).  At every stabilization G is REPLACED by
 the df rebuild, so the drift never compounds; the Green's function used
 for measurements carries df accuracy (~1e-8 at beta=8 vs the f64 chain,
 tests/test_df_linalg.py) for the exact field configuration being
-measured.  The f64-emulation mode remains for strict 1e-10 work at ~26x
-the matmul cost; this mode replaces it wherever ~1e-8 suffices.
+measured.  The f64 mode remains for strict 1e-10 work.
 
 Mirrors the sweep structure of engine/sweep.py (dqmc.cpp:337-456); see
 there for the identity-padded stack and transpose-suffix conventions.
@@ -35,11 +33,7 @@ import numpy as np
 
 from dqmc_tpu import hsfield
 from dqmc_tpu.engine.state import EngineConfig
-from dqmc_tpu.engine.sweep import (
-    draw_slice_randoms,
-    local_update_slice,
-    local_update_slice_delayed,
-)
+from dqmc_tpu.engine.sweep import draw_slice_randoms, site_update
 from dqmc_tpu.models.kinetic import (
     apply_B_left,
     apply_B_right,
@@ -351,34 +345,9 @@ def df_sweep(model32, aux: DFModelAux, cfg: EngineConfig,
 
         if update:
             key, k_slice = jax.random.split(key)
-            if cfg.use_pallas and model32.n_flavor == 2 \
-                    and model32.det_power == 1:
-                from dqmc_tpu.ops.kernels import pallas_site_update_2f
-                G, fields_l, acc_l, sgn_l = pallas_site_update_2f(
-                    model32, k_slice, G, fields_l)
-                sign = sign * sgn_l
-            elif cfg.use_pallas:
-                if model32.n_flavor != 1 or model32.det_power != 2:
-                    raise NotImplementedError(
-                        "pallas site-update kernel: single-flavor "
-                        "det_power=2 or two-flavor det_power=1 models only")
-                if cfg.submatrix_rank > 0:
-                    from dqmc_tpu.ops.kernels import \
-                        pallas_site_update_submatrix
-                    G, fields_l, acc_l = pallas_site_update_submatrix(
-                        cfg.submatrix_rank)(model32, k_slice, G, fields_l)
-                else:
-                    from dqmc_tpu.ops.kernels import pallas_site_update
-                    G, fields_l, acc_l = pallas_site_update(
-                        model32, k_slice, G, fields_l)
-            elif cfg.delay_rank > 0:
-                G, fields_l, acc_l, sgn_l = local_update_slice_delayed(
-                    model32, k_slice, G, fields_l, cfg.delay_rank)
-                sign = sign * sgn_l
-            else:
-                G, fields_l, acc_l, sgn_l = local_update_slice(
-                    model32, k_slice, G, fields_l)
-                sign = sign * sgn_l
+            G, fields_l, acc_l, sgn_l = site_update(model32, cfg, k_slice,
+                                                    G, fields_l)
+            sign = sign * sgn_l
             acc = acc + acc_l / cfg.nt
             fields = fields.at[l].set(fields_l)
 

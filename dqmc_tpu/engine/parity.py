@@ -1,7 +1,7 @@
 """Parity-grade multiword Green's-function rebuild at the engine level.
 
 Computes G(0,0) = [I + B(beta,0)]^{-1} for a FIXED field configuration
-with multiword numerics built entirely from f32 TPU hardware operations
+with multiword numerics built entirely from f32 (and int8) operations
 (ops/df_linalg with nm=df32 or nm=tf32) — the north-star parity
 quantity (BASELINE.md: max|dG| < 1e-10 vs the reference on a fixed
 field configuration).
@@ -31,25 +31,24 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from dqmc_tpu import hsfield
+from dqmc_tpu import hsfield, platform
 from dqmc_tpu.engine.state import EngineConfig
 from dqmc_tpu.ops import df32, df_linalg
 
 
 def _maybe_jit(f):
-    """jit on accelerators; eager on CPU.
+    """jit where platform.jit_multiword() allows it; eager otherwise.
 
     XLA:CPU's backend codegen at optimization level > 0 corrupts fused
     multiword graphs: the identical fold chain measures 1.1e-8 eager
     vs 5.4e-4 jitted on CPU (LLVM-level contraction/reassociation across
     the fused error-free transformations; --xla_backend_optimization_level=0
-    restores 1.3e-8).  TPU compiles the same graphs bit-stably (eager ==
-    jitted, measured) — see NOTES.md round-4 log.
+    restores 1.3e-8) — see NOTES.md.
     """
     jitted = jax.jit(f)
 
     def call(*args, **kw):
-        if jax.default_backend() == "cpu":
+        if not platform.jit_multiword():
             return f(*args, **kw)
         return jitted(*args, **kw)
 
@@ -125,7 +124,7 @@ def rebuild_chain(model, cfg: EngineConfig, fields: jax.Array, nm=df32,
 
     ``use_scan`` (auto when None: on iff nt % n_stab == 0 and _wrap is
     identity): the fold loop runs as ONE ``lax.scan`` body instead of an
-    unrolled chain — each multiword matmul lowers to 28-55 int8 MXU
+    unrolled chain — each multiword matmul lowers to 28-55 int8
     dots, so an unrolled 32-fold chain is a 100k-op HLO that XLA chews
     on for minutes, while the scan compiles a single fold.  Seeded with
     an identity LDR (the Ozaki matmul is exact on identity operands, so
@@ -228,8 +227,7 @@ def _scan(f, carry, xs, use_scan: bool):
     The loop form exists for CPU: XLA:CPU's backend codegen corrupts
     fused multiword graphs inside compiled scan bodies (module docstring
     of ops/df_linalg.py; measured again here — the jitted uneq scan
-    degrades the df tier from ~1e-8 to 2.3e-5 on CPU while TPU compiles
-    the same body bit-stably).  Eager per-primitive execution restores
+    degrades the df tier from ~1e-8 to 2.3e-5 on CPU).  Eager per-primitive execution restores
     the tier at Python-loop speed, which tests accept."""
     if use_scan:
         return jax.lax.scan(f, carry, xs)
@@ -244,7 +242,7 @@ def _scan(f, carry, xs, use_scan: bool):
 
 
 # boundaries per chunk in the block-batched triplet factorization (see
-# one_batched): 4 x W x nfl simultaneous 256^2 systems saturate the MXU
+# one_batched): 4 x W x nfl simultaneous 256^2 systems keep the device busy
 # while the per-chunk working set stays ~n_stack/4 below the full batch.
 # Env-overridable (read at import): the stretch scale (ns=1024) needs
 # chunk 1-2 — one boundary's factorization intermediates are already
@@ -253,7 +251,7 @@ import os as _os
 _TRIPLET_CHUNK = int(_os.environ.get("DQMC_TRIPLET_CHUNK", "4"))
 # blocks per group in the batched propagation/emit phase (same memory
 # argument: full-batch carries at the tf32 headline are ~GBs each;
-# 8 x W x nfl matmuls per step still saturate the MXU)
+# 8 x W x nfl matmuls per step still keep the device busy)
 _BLOCK_GROUP = int(_os.environ.get("DQMC_BLOCK_GROUP", "8"))
 
 
@@ -301,11 +299,10 @@ def measurement_uneq_fn(model64, cfg: EngineConfig, nm, measure_fn, *,
 
     ``prop_nm`` — the arithmetic of the WITHIN-BLOCK propagation (the 5
     multiword matmuls per slice); default nm itself.  A df32-propagation
-    "mixed" mode under nm=tf32 was MEASURED A DEAD END on chip
-    (round-3): throughput 1.86 -> 1.76 measured sweeps/s — the sweep is
-    dominated by the sequential multiword QR folds, not the slice
-    wraps — while the mid-block df drift reached 7.2e-10 at the 16x16
-    headline, eating the <1e-10 target.  The shipped fold-count levers
+    "mixed" mode under nm=tf32 was measured a dead end: the sweep is
+    dominated by the sequential multiword QR folds, not the slice wraps,
+    while the mid-block df drift reached 7.2e-10 at the 16x16 headline,
+    eating the <1e-10 target.  The shipped fold-count levers
     are the round-4 stride defaults below plus the block-batched
     triplet/propagation formulation (one_batched).
     """
@@ -331,30 +328,24 @@ def measurement_uneq_fn(model64, cfg: EngineConfig, nm, measure_fn, *,
         n_stab = cfg.n_stab
         if nm is df32:
             # 0.4/dtau cap: stride*dtau = 0.25 at the 16x16 headline
-            # self-checks 6.9e-9 STEADY-STATE on chip (round-4 probe,
-            # thermalized fields — better than stride 4's 4.7e-8 and
-            # well inside the ~1e-8 tier grade).  Round-3's 0.2 cap
-            # (cf15998) chased a contaminated metric: the bench err
-            # then included the first iterations from near-random INIT
-            # fields, where the f32-seeded refinement can diverge by
-            # orders at ANY stride (see measured_throughput's docstring
-            # in bench.py and BENCHMARKS round-4).  The tier's grade
+            # self-checked 6.9e-9 steady-state on thermalized fields
+            # (better than stride 4's 4.7e-8, inside the ~1e-8 tier
+            # grade).  On near-random INIT fields the f32-seeded
+            # refinement can diverge by orders at ANY stride (see
+            # measured_throughput's docstring in bench.py).  The tier's grade
             # contract applies to equilibrated configurations, which is
             # when measurements run (reference: main.cpp:147-156).
             dtau = float(model64.beta) / nt
             n_stab = max(1, min(n_stab, int(0.4 / dtau)))
         else:
-            # tf32: the ENGINE stride.  A 2x default was attempted
-            # twice and measured unhealthy ON CHIP both times at the
-            # 16x16 headline: 1.08e-1 (round-3, pre-safeguard) and
-            # 7.8e-6 STEADY-STATE (round-4, thermalized bench,
-            # safeguarded IR bounding the divergence at seed grade —
-            # artifacts/r4/measured_tf32_batched.log) while CPU passes
-            # <1e-10 at the same stride*dtau (test_tf_uneq_2x_stride_
-            # fine_dtau_vs_gold).  The chip's CGS2-seeded triplet
-            # refinement does not survive stride-10 middle-matrix
-            # conditioning; until a stronger f32 seed lands, the uneq
-            # tier keeps the engine schedule (the reference's own,
+            # tf32: the ENGINE stride.  A 2x default measured unhealthy
+            # at the 16x16 headline (7.8e-6 steady-state with the
+            # safeguarded IR) when the f32 seed came from a CGS2 QR,
+            # while the Householder-seeded path passes <1e-10 at the
+            # same stride*dtau (test_tf_uneq_2x_stride_fine_dtau_vs_
+            # gold).  Whether the Householder seed now used everywhere
+            # allows 2x at the headline is not measured; until then the
+            # uneq tier keeps the engine schedule (the reference's own,
             # dqmc.cpp:481-512).
             n_stab = cfg.n_stab
     n_stab = _divisor_stride(nt, n_stab)
@@ -513,7 +504,7 @@ def measurement_uneq_fn(model64, cfg: EngineConfig, nm, measure_fn, *,
 
         to the two fold scans (unchanged), ONE inv_triplet_dag batched
         over all n_stack boundaries (CGS2/refinement batch W*n_stack*
-        nfl — throughput-bound on the MXU instead of latency-bound),
+        nfl — throughput-bound instead of latency-bound),
         and n_stab batched propagation steps (each step advances every
         block's triplet at once).  The emitted ys and the self-check
         follow the exact sequential semantics: tau = k*n_stab + i emits
@@ -524,13 +515,10 @@ def measurement_uneq_fn(model64, cfg: EngineConfig, nm, measure_fn, *,
         blocks = fields[:nt].reshape(n_stack, n_stab, -1)
         F2t_0, bounds, Bbars = _suffix_stack(blocks)
         # NOTE a "suffix+prefix as one batch-2 fold scan, block products
-        # batched out" variant was measured and REVERTED (round 4,
-        # artifacts/r4/*_b3): CPU-bit-identical, but ON CHIP it moved
-        # the tf32 tier's self-check 6.8e-13 -> 1.4e-11 and broke the
-        # df32 tier's gate outright (6.6e-7 -> 5.0e-4) for +8.8% / -1.4%
-        # throughput — the fold scans are throughput-bound, not
-        # latency-bound, so halving the sequential QR count bought
-        # almost nothing.
+        # batched out" variant was measured and reverted: CPU-bit-
+        # identical, but compiled for the accelerator it moved the tf32
+        # tier's self-check 6.8e-13 -> 1.4e-11 and broke the df32 tier's
+        # gate outright (6.6e-7 -> 5.0e-4).
 
         G00, _ = df_linalg.inv_one_plus_ldr_dag(
             df_linalg.to_ldr(nm.df(eyeB32), nm=nm), F2t_0, nm=nm)
@@ -552,11 +540,10 @@ def measurement_uneq_fn(model64, cfg: EngineConfig, nm, measure_fn, *,
         # Batched triplet factorization over boundaries 1..n_stack
         # (leading dim n_stack; every df_linalg op is batch-generic).
         # Fully batched, the factorization intermediates (M, the 2n-wide
-        # refined RHS, Q/R) at leading n_stack overflow HBM at the
-        # headline (17.5G vs 15.75G measured, W=16 x n_stack=32 df32) —
-        # lax.map over chunks of _TRIPLET_CHUNK boundaries keeps the
-        # batch MXU-saturating (W*chunk*nfl systems) at 1/n_chunks the
-        # working set.  Eager/CPU path keeps the single full batch.
+        # refined RHS, Q/R) at leading n_stack take ~17.5 GB at the
+        # headline (W=16 x n_stack=32 df32) — lax.map over chunks of
+        # _TRIPLET_CHUNK boundaries keeps the batch large (W*chunk*nfl
+        # systems) at 1/n_chunks the working set.  Eager/CPU path keeps the single full batch.
         chunk = next(c for c in (_TRIPLET_CHUNK, 2, 1) if n_stack % c == 0)
         if use_scan and chunk < n_stack:
             def _trip(xs):
@@ -683,8 +670,7 @@ def measurement_greens_fn(model64, cfg: EngineConfig, nm, *,
     engine's: tf32's precision headroom tolerates a wider stride (fewer
     multiword QRs — they dominate the rebuild's cost).  Default for tf32
     is 2x the engine stride: at beta=8 that measures 3.7e-11 vs gold
-    (vs 8.5e-12 at 1x — still 2.7x under the 1e-10 target, and cross-
-    checked stride-5-vs-10 at the 16x16 headline shape on TPU); 4x blows
+    (vs 8.5e-12 at 1x — still 2.7x under the 1e-10 target); 4x blows
     the fold-input condition past the tier (1.6e-8 measured).  df32
     keeps the engine stride (its tier has no headroom).
     """

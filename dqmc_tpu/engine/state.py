@@ -34,7 +34,7 @@ class EngineConfig:
     # k > 0 = accumulate up to k rank-1 terms in (ns, k) buffers and apply
     # them as ONE rank-k GEMM per block of k sites (exact same sequential
     # Markov chain, identical accept/reject stream — only the linear
-    # algebra is reorganized onto the MXU; see sweep.local_update_slice).
+    # algebra is reorganized into GEMMs; see sweep.local_update_slice).
     delay_rank: int = 0
     # Submatrix-update rank: like delay_rank, the exact same sequential
     # Markov chain, but decisions run on the k x k submatrix G[I, I] of
@@ -44,23 +44,12 @@ class EngineConfig:
     # the BASELINE stretch configuration's update scheme for L >= 32).
     # Takes precedence over delay_rank.
     submatrix_rank: int = 0
-    # Run the Metropolis site loop as one VMEM-resident Pallas program per
-    # walker (ops/kernels.py) — same Markov chain, ~2x faster than the scan
-    # on TPU.  Takes precedence over delay_rank; single-flavor models only.
-    # On CPU backends the kernel runs in (slow) interpret mode, so leave
-    # this off for CPU runs.
+    # Run each slice's Metropolis site loop as one Pallas (Triton) program
+    # per walker (ops/kernels.py): the same Markov chain as the delayed
+    # scheme given the same stream, with the batch sharing its visit
+    # order.  GPU only (it raises elsewhere); single-flavor models; its
+    # flush rank comes from delay_rank (default 32).
     use_pallas: bool = False
-    # In-slice site-update algorithm of the FUSED block kernel:
-    # "delayed" (rank-k U/V buffers) or "submatrix" (bordered Woodbury on
-    # the k x k candidate submatrix — O(k^2) per site instead of O(k ns);
-    # rank from submatrix_rank, default 32).  [simulation] fused_update.
-    fused_update: str = "delayed"
-    # MXU pass count for the fused kernel's f32 propagation/flush matmuls:
-    # "highest" = f32-exact (6 bf16 passes on v5e); "default" = one bf16
-    # pass (~4e-3 relative — degrades the chain's self-check error, see
-    # NOTES.md; Mosaic does not lower the bf16x3 middle ground).
-    # [simulation] wrap_precision in the driver config.
-    wrap_precision: str = "highest"
 
     def __post_init__(self):
         if self.nt <= 0 or self.n_stab <= 0:
@@ -69,6 +58,26 @@ class EngineConfig:
             raise ValueError("delay_rank must be >= 0")
         if self.submatrix_rank < 0:
             raise ValueError("submatrix_rank must be >= 0")
+        if self.use_pallas and self.submatrix_rank > 0:
+            raise ValueError("the submatrix scheme has no Pallas kernel; "
+                             "use site_update = submatrix (XLA) or pallas "
+                             "(delayed kernel)")
+
+    @classmethod
+    def for_site_update(cls, site_update: str, *, nt: int, n_stab: int,
+                        rank: int = 32) -> "EngineConfig":
+        """The config of a named site-update scheme ([simulation]
+        site_update): 'pallas' (the Triton kernel), 'delayed' and
+        'submatrix' (block rank ``rank``), or 'scan' (rank-1)."""
+        if site_update not in ("pallas", "delayed", "submatrix", "scan"):
+            raise ValueError(f"[simulation] site_update must be auto, "
+                             f"pallas, delayed, submatrix or scan, got "
+                             f"{site_update!r}")
+        return cls(nt=nt, n_stab=n_stab,
+                   use_pallas=site_update == "pallas",
+                   delay_rank=rank if site_update in ("pallas", "delayed")
+                   else 0,
+                   submatrix_rank=rank if site_update == "submatrix" else 0)
 
     @property
     def n_stack(self) -> int:

@@ -93,7 +93,7 @@ def sweep_unequal_time(model, cfg: EngineConfig, state: WalkerState,
     # restabilization placed at the block end — no per-slice lax.cond.
     # The cond formulation (still used by the chunked iterator, whose tau
     # boundaries don't align with stacks) costs ~6 full-GF carry copies
-    # per slice on TPU (~10 ms of a 91 ms measured sweep, traced).
+    # per slice.
     n_stab = cfg.n_stab
     n_full, rem = cfg.nt // n_stab, cfg.nt % n_stab
     emit3 = lambda a, b, c: emit(a, b, c, G00)
@@ -112,7 +112,7 @@ def sweep_unequal_time(model, cfg: EngineConfig, state: WalkerState,
             cs.append((carry[0], carry[1], carry[2]))
         # ONE measurement emit per block, vmapped over the stacked slice
         # axis: the per-tau reductions become (n_slices)-batched matmuls
-        # (better MXU shapes) and the scan body carries a single emit's HLO
+        # (better matmul shapes) and the scan body carries a single emit's HLO
         # instead of n_stab unrolled copies (cold compile time)
         triplets = jax.tree_util.tree_map(lambda *a: jnp.stack(a), *cs)
         ys = jax.vmap(emit3)(*triplets)
@@ -214,7 +214,7 @@ def _uneq_prop(model, state):
         fields_l = jnp.take(state.fields, l, axis=0)
         # batch the slice's five B-applications into two stacked GEMMs
         # (dqmc.cpp:223-246 does them one by one): B @ [Gtt, Gt0, Bbar]
-        # left, then [B Gtt, G0t] @ B^{-1} right — same math, 2 MXU
+        # left, then [B Gtt, G0t] @ B^{-1} right — same math, 2 matmul
         # dispatches per slice instead of 5 and expV built twice not five
         # times
         BL = apply_B_left(model, fields_l, jnp.stack([Gtt, Gt0, Bbar]))

@@ -4,7 +4,7 @@ Capability mirror of the reference ``GHQField`` (include/field.h:13-84): the
 four field states s in {0,1,2,3} carry quadrature weights gamma(s) and node
 values eta(s); a proposal picks one of the other three states uniformly.
 
-TPU-native design: the field configuration is a plain ``int32`` array of
+Design: the field configuration is a plain ``int32`` array of
 shape ``(nt, n_sites)`` inside the walker-state pytree (batchable with a
 leading walker axis); gamma/eta are tiny constant lookup tables, and
 proposals are drawn with explicit ``jax.random`` key threading (the
@@ -65,9 +65,8 @@ def propose_new_fields(key: jax.Array, old: jax.Array) -> jax.Array:
 def select4(table: jax.Array, idx: jax.Array) -> jax.Array:
     """table[idx] for a 4-entry table as a where-select chain.
 
-    An indexed lookup lowers to an element-at-a-time XLA:TPU gather
-    (measured ~5 ms per unequal-time sweep at nt=160 for the expV build
-    alone); four selects are pure VPU work."""
+    Four elementwise selects fuse into the surrounding elementwise work,
+    where an indexed lookup would be a gather."""
     out = jnp.full(idx.shape, table[0], table.dtype)
     for k in range(1, 4):
         out = jnp.where(idx == k, table[k], out)

@@ -26,7 +26,6 @@ from __future__ import annotations
 import os
 from typing import Dict, Optional
 
-import h5py
 import numpy as np
 
 
@@ -38,6 +37,8 @@ class BinFileWriter:
         if d:
             os.makedirs(d, exist_ok=True)
         # "w" truncates (fresh run); "a" appends further bins (resume)
+        import h5py   # HDF5 only where a file is opened: sampling never needs it
+
         self._f = h5py.File(path, mode)
 
     def write_bin(

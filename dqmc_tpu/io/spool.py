@@ -6,8 +6,9 @@ thread appends them to a compact length-prefixed binary log.  After (or
 during) the run, `convert_spool_to_h5` replays the log into the reference's
 exact HDF5 layout, so the analysis contract is unchanged.
 
-Enable with ``[io] sink = spool`` in parameters.in; without the native
-library the manager silently falls back to direct h5py writes.
+Enable with ``[io] sink = spool`` in parameters.in.  Without the native
+library opening a spool raises; without h5py the conversion says so on
+stderr and leaves the log in place (``read_spool`` reads it back).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import os
 import struct
+import sys
 from typing import Dict, Optional
 
 import numpy as np
@@ -92,13 +94,21 @@ def read_spool(path: str | os.PathLike):
             yield name, bin_idx, data.reshape(shape)
 
 
-def convert_spool_to_h5(spool_path, h5_path) -> int:
+def convert_spool_to_h5(spool_path, h5_path) -> Optional[int]:
     """Replay a spool log into the reference HDF5 layout.
 
     Record names carry their group as a prefix, e.g. 'scalar/density',
     'equaltime/densityCorr', 'K/unequaltime/greenTau'.  Returns the number
-    of bins written.
+    of bins written, or None when h5py is not installed: the log then
+    stays where it is and the reason goes to stderr.
     """
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        print(f"dqmc_tpu: converting {spool_path} to HDF5 needs h5py, "
+              f"which is not installed; the binary log is kept",
+              file=sys.stderr)
+        return None
     from dqmc_tpu.io.h5out import BinFileWriter
 
     bins: Dict[int, Dict[str, Dict[str, np.ndarray]]] = {}

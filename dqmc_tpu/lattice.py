@@ -164,7 +164,7 @@ class Lattice:
 
         chi_k[kx, ky, s] = sum_{x,y} P[kx, ky, x, y] * chi_r[x, y, s] — the
         explicit DFT of transform::chi_r_to_chi_k (measurementh5.h:78-116)
-        expressed as one dense contraction (an MXU matmul on device).
+        expressed as one dense contraction (one matmul on device).
         """
         off1, off2 = _half_offset(self.L1), _half_offset(self.L2)
         xs = np.arange(self.L1) - off1

@@ -179,21 +179,17 @@ def currxx_tau(Gtt, Gt0, G0t, G00, ctx: MeasurementContext):
     All eight element-gather patterns of the reference's quadruple loop are
     expressed through the +x neighbor map as a one-hot permutation matmul
     P[i, j] = delta(j == nbr(i)): row gathers G[nbr] = P @ G, column
-    gathers G[:, nbr] = G @ P^T, diagonal picks as masked row sums.  XLA:TPU
-    lowers indexed gathers element-at-a-time (~8 ms per measured uneq sweep
-    at nt=160, traced); the matmul forms are MXU work, and only two real
-    transposes per spin remain (G0t^T and (P G0t)^T, each reused twice).
+    gathers G[:, nbr] = G @ P^T, diagonal picks as masked row sums; only
+    two real transposes per spin remain (G0t^T and (P G0t)^T, each reused
+    twice).
     """
     nbr = ctx.nbr_x
     ns = ctx.n_sites
     dt = Gtt.dtype
     if dt == jnp.float64:
-        # f64 tier path: P is a PERMUTATION, so every P-product is an
-        # exact row/column gather — memory ops instead of f64 matmuls,
-        # which XLA:TPU EMULATES at ~20x an f32 matmul (round-4: the
-        # matmul form made the tier's per-tau measurements a dominant
-        # cost of the measured sweep).  The f32 engine path below keeps
-        # the measured-faster MXU matmul forms.
+        # f64 path: P is a PERMUTATION, so every P-product is an exact
+        # row/column gather — memory ops instead of f64 matmuls.  The f32
+        # engine path below keeps the matmul forms.
         idx = jnp.arange(ns)
 
         def one_spin(Gtt_s, Gt0_s, G0t_s, G00_s):

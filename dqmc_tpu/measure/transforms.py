@@ -1,6 +1,6 @@
 """Site-pair -> displacement -> momentum transforms.
 
-TPU-native re-design of the reference's transform namespace
+Batched re-design of the reference's transform namespace
 (measurementh5.h:12-117):
 
 - ``site_to_r``: the O(ns^2) scalar accumulation loop becomes one batched
@@ -9,7 +9,7 @@ TPU-native re-design of the reference's transform namespace
   with displacement index offsets dx + L/2 - 1 for even L
   (measurementh5.h:57-61).
 - ``r_to_k``: the explicit O(L^4) DFT quadruple loop becomes a single dense
-  complex contraction with the precomputed phase tensor — an MXU matmul.
+  complex contraction with the precomputed phase tensor — one matmul.
   The reference's k flat-index convention (measurementh5.h:98-99) is only
   self-consistent for L1 == L2; we use the row-major (kidx // L2, kidx % L2)
   mapping, identical for square lattices and correct for rectangular ones.
@@ -34,11 +34,10 @@ def site_to_r_batched(chis, ctx: MeasurementContext):
 
     The site-pair axes flatten row-major into the contracted axis with no
     transposes, so the whole reduction is a single
-    (..., ns^2) x (ns^2, L1*L2*no^2) dot on the MXU.  This replaces the
-    separable shift-tensor einsums for the per-tau unequal-time
-    measurements, whose XLA:TPU lowering (convolution kernels + layout
-    copies) cost ~60 ms of a 138 ms measured sweep at L=16, nt=160.
-    Stack observables on a leading axis so the one-hot matrix builds/
+    (..., ns^2) x (ns^2, L1*L2*no^2) dot, in the input's own dtype (f64
+    is native on both the CPU and the GPU).  It replaces the separable
+    shift-tensor einsums for the per-tau unequal-time measurements.  Stack
+    observables on a leading axis so the one-hot matrix builds/
     streams once per tau batch.  The dense one-hot is expanded IN-GRAPH
     from ctx.pair_cols (one compare per entry — trivial next to the dot
     it feeds); a baked dense constant inflated the lowered HLO 54x.
@@ -49,27 +48,10 @@ def site_to_r_batched(chis, ctx: MeasurementContext):
     nd = ctx.L1 * ctx.L2 * ctx.n_orb * ctx.n_orb
     lead = chis.shape[:-2]
     X = chis.reshape(lead + (ns * ns,))
-    if chis.dtype == jnp.float64 and jax.default_backend() != "cpu":
-        # f64 tier path on accelerators: XLA EMULATES the f64 dot at
-        # ~20x an f32 one (round-4: this contraction was a dominant
-        # per-tau cost of the tf32/df32 measured sweep).  The one-hot
-        # operand is EXACT in f32 and the df32 Ozaki matmul accumulates
-        # the selected entries error-free to ~2^-46 relative — below
-        # the tf tier's own 1e-10 observable budget.
-        from dqmc_tpu.ops import df32 as _df32
-        D32 = (ctx.pair_cols[:, None]
-               == jnp.arange(nd, dtype=jnp.int32)[None, :]).astype(
-                   jnp.float32)
-        Xdf = _df32.from_f64(X.reshape((-1, ns * ns)))
-        Ddf = _df32.DF(D32, jnp.zeros_like(D32))
-        out = _df32.to_f64(_df32.matmul(Xdf, Ddf)) / ctx.n_cells
-        out = out.reshape(lead + (nd,))
-    else:
-        D = (ctx.pair_cols[:, None]
-             == jnp.arange(nd, dtype=jnp.int32)[None, :]).astype(
-                 chis.dtype)
-        out = jnp.einsum("...k,kd->...d", X, D,
-                         precision=jax.lax.Precision.HIGHEST) / ctx.n_cells
+    D = (ctx.pair_cols[:, None]
+         == jnp.arange(nd, dtype=jnp.int32)[None, :]).astype(chis.dtype)
+    out = jnp.einsum("...k,kd->...d", X, D,
+                     precision=jax.lax.Precision.HIGHEST) / ctx.n_cells
     return out.reshape(lead + (ctx.L1, ctx.L2, ctx.n_orb * ctx.n_orb))
 
 
@@ -98,7 +80,7 @@ def site_to_r(chi, ctx: MeasurementContext):
     """chi (ns, ns) or (ns, ns, S) site-pair array -> (L1, L2, n_orb^2 * S)
     displacement array, averaged over cells (1/n_cells, measurementh5.h:61).
 
-    Two equivalent TPU formulations (brute-force-pinned in
+    Two equivalent formulations (brute-force-pinned in
     tests/test_transforms.py):
 
     - pair-matmul (default when ctx.pair_cols exists): one dense one-hot
@@ -106,9 +88,7 @@ def site_to_r(chi, ctx: MeasurementContext):
     - separable einsums: the cell translation is separable (cell =
       uy*L1 + ux translates per-axis), so the reduction runs as TWO dense
       einsums against one-hot cyclic-shift tensors.  Used when the pair
-      matrix would be too large.  (A gather formulation costs ~0.27 ms per
-      (256, 256) call on TPU — gathers are element-at-a-time — and is not
-      used at all.)
+      matrix would be too large.
     """
     nc, no = ctx.n_cells, ctx.n_orb
     L1, L2 = ctx.L1, ctx.L2

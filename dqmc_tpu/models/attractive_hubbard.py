@@ -179,9 +179,8 @@ class AttractiveHubbard:
         """diag of exp(+V): (nfl, ns) = exp(g * eta(s)) (model.cpp:62-72).
 
         Spin-symmetric: one stored flavor.  The 4-entry eta table lookup
-        runs as a where-select chain (hsfield.select4): an indexed gather
-        lowers to an element-at-a-time XLA:TPU gather (~5 ms per measured
-        uneq sweep at nt=160, traced).
+        runs as a where-select chain (hsfield.select4) instead of a
+        gather.
         """
         from dqmc_tpu.hsfield import select4
         return jnp.exp(self.g * select4(self.eta, fields_l))[None, :]

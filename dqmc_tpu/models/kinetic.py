@@ -5,7 +5,7 @@ products  B@X,  X@B,  B^{-1}@X,  X@B^{-1}  with  B = diag(expV) expK.
 This module provides those as functions generic over the model, dispatching
 on the model's static ``checkerboard`` flag:
 
-- dense: one MXU GEMM with the precomputed exp(-dtau K) (O(ns^3));
+- dense: one GEMM with the precomputed exp(-dtau K) (O(ns^3));
 - checkerboard: exp(-dtau K_hop) ~= prod_g exp(-dtau K_g) over 4 bond
   groups of the square lattice (x-even, x-odd, y-even, y-odd), each an
   exact disjoint 2-site rotation [[cosh, sinh], [sinh, cosh]](dtau t)
@@ -17,11 +17,9 @@ on the model's static ``checkerboard`` flag:
 The checkerboard operator *defines* the simulated B (its inverse is the
 exact reverse-order product, so stabilization is unaffected); relative to
 the dense model it differs by an additional O(dtau^2) Trotter term, the
-standard trade for O(ns^2) kinetics.  Measured crossover on TPU v5e
-(trace-timed B G B^-1 wraps, f32): dense GEMMs win at BOTH ns=256
-(0.034 vs 0.132 ms, W=16) and ns=1024 (0.57 vs 0.90 ms, W=4) — the MXU's
-O(ns^3) at full utilization beats the VPU's O(ns^2) masked gather-mix
-until far larger lattices.  Keep checkerboard for memory-bound regimes
+standard trade for O(ns^2) kinetics.  Where the dense GEMMs and the
+masked gather-mix cross over on the GPU is not measured yet.  Keep
+checkerboard for memory-bound regimes
 (no dense expK storage) and as the reference-TODO parity feature
 (README.md:40); default to dense for throughput.
 """

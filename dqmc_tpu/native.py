@@ -50,11 +50,15 @@ def load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_LIB_PATH):
-            src = [os.path.join(_NATIVE_DIR, f)
-                   for f in ("dqmc_stats.cpp", "dqmc_spool.cpp")]
-            if not all(map(os.path.exists, src)) or not _build():
-                return None
+        src = [os.path.join(_NATIVE_DIR, f)
+               for f in ("dqmc_stats.cpp", "dqmc_spool.cpp")]
+        # a library older than its sources (one copied from another
+        # machine, or left by an earlier checkout) is rebuilt
+        stale = (not os.path.exists(_LIB_PATH)
+                 or any(os.path.getmtime(f) > os.path.getmtime(_LIB_PATH)
+                        for f in src if os.path.exists(f)))
+        if stale and (not all(map(os.path.exists, src)) or not _build()):
+            return None
         try:
             lib = ctypes.CDLL(_LIB_PATH)
         except OSError as e:

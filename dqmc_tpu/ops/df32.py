@@ -1,30 +1,29 @@
 """Double-float32 ("df32") arithmetic: ~49-bit-significand numerics from
-pairs of f32 values, built for TPU.
+pairs of f32 values.
 
-Why: TPU has no f64 ALUs.  XLA's f64 emulation works but explodes every
-op into unfused scalar sequences — the measured f64 engine runs ~40x
-slower than f32 (BENCHMARKS.md) and a (1024,1024) f64 matmul is 26x an
-f32-HIGHEST one.  df32 reaches nearly the same precision (2^-49 vs
-2^-52) from f32 hardware ops:
+Why: near-f64 precision (2^-49 vs 2^-52) from f32 and int8 operations
+only.  The tier was built for hardware without f64 units; the GPU has
+native f64, so whether it stays is decided per benchmark cell against the
+f64 engine (ROADMAP C3).
 
 - elementwise: error-free transformations (Knuth two_sum, Dekker/
-  Veltkamp two_prod — no FMA exists on the VPU) at ~6-15 f32 ops per df
-  op, all fusable by XLA and usable inside Pallas kernels;
+  Veltkamp two_prod without FMA) at ~6-15 f32 ops per df op, all
+  fusable by XLA.  They are exact only if the compiler neither contracts
+  a*b+c into an FMA nor reassociates — chip_smoke.py checks the jitted
+  chain against f64 on the card;
 - matmul: integer Ozaki scheme — operands are split into 7-bit signed
   digit planes with per-row/column power-of-two scales, digit products
-  run on the MXU as int8 x int8 -> int32 dots whose accumulation is
-  EXACT (verified on v5e; f32-accumulated schemes are capped at ~2^-24
-  by accumulator rounding no matter how the products are split), and the
-  weight-graded partial sums recombine in df32.  28 int8 passes per
-  matmul vs f32-HIGHEST's 6 bf16 passes — ~2-3x an f32 matmul, ~10-20x
-  faster than emulated f64.
+  run as int8 x int8 -> int32 dots whose accumulation is EXACT
+  (f32-accumulated schemes are capped at ~2^-24 by accumulator rounding
+  no matter how the products are split), and the weight-graded partial
+  sums recombine in df32.  28 int8 passes per matmul.
 
 Used by the parity-grade engine mode; validated against numpy longdouble
 in tests/test_df32.py.
 
 Representation: DF(hi, lo) with hi = f32 nearest value, |lo| <= ulp(hi)/2
 (a non-overlapping normalized pair).  All functions are shape-polymorphic
-and jit/vmap/Pallas-safe (no data-dependent control flow).
+and jit/vmap-safe (no data-dependent control flow).
 """
 
 from __future__ import annotations
@@ -34,6 +33,8 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from dqmc_tpu import platform
 
 
 class DF(NamedTuple):
@@ -66,7 +67,7 @@ def zeros(shape, dtype=jnp.float32) -> DF:
 
 
 # ----------------------------------------------------------------------
-# error-free transformations (all plain f32 ops; no FMA on the TPU VPU)
+# error-free transformations (all plain f32 ops; no FMA)
 # ----------------------------------------------------------------------
 
 def two_sum(a, b):
@@ -266,7 +267,7 @@ def matmul(a: DF, b: DF, n_planes: int = N_PLANES) -> DF:
     unit and hit the LLVM reassociation bug outside the tests' opt-0 flag
     (module docstring of ops/df_linalg.py).
     """
-    if jax.default_backend() != "cpu":
+    if platform.jit_multiword():
         return _matmul_jit(a, b, n_planes)
     return _matmul_impl(a, b, n_planes)
 

@@ -2,10 +2,10 @@
 
 The parity-grade numerical core: the same presorted-QR LDR scheme as
 ops/linalg.py (reference: stablelinalg.cpp:35-190) carried at ~2^-46
-precision on f32 TPU hardware.  The factorization is the genuine df
+precision from f32 hardware operations.  The factorization is the genuine df
 CGS2 of ops/df_qr.py (see there for why f32-QR-plus-refinement cannot
 work on graded folds); everything around it is df32 matmuls (exact
-int8-plane MXU products) and df elementwise algebra.
+int8-plane products) and df elementwise algebra.
 
 Solves against the equilibrated middle matrices M use the FAST f32
 factorization plus df iterative refinement: M's condition is bounded
@@ -25,8 +25,7 @@ strict 1e-10 reference parity remains the f64 mode's domain
 Compilation caveat: on XLA:CPU, whole-graph compilation at backend
 optimization level > 0 corrupts fused df chains (1.1e-8 -> 5.4e-4 on
 the chain rebuild, measured; LLVM-level contraction across the
-error-free transformations).  TPU compiles the same graphs bit-stably.
-CPU callers should run these functions eagerly (see
+error-free transformations).  CPU callers should run these functions eagerly (see
 engine/parity._maybe_jit) or set --xla_backend_optimization_level=0.
 """
 
@@ -41,6 +40,7 @@ import numpy as np
 from dqmc_tpu.ops import df32
 from dqmc_tpu.ops.df32 import DF
 from dqmc_tpu.ops.df_qr import df_qr
+from dqmc_tpu.ops.linalg import unpermute_columns
 
 
 class LDRdf(NamedTuple):
@@ -53,7 +53,7 @@ class LDRdf(NamedTuple):
     representable at production scale: a beta=16 chain spans e^{+-148}
     (measured, tools/stretch range probe) against f32's e^{+-88}.  The
     reference stores d in f64 (range e^{+-709}, stablelinalg.cpp:35-55);
-    the exponent channel is the TPU-native equivalent with effectively
+    the exponent channel is the multiword equivalent with effectively
     unbounded range — folds compose scales symbolically
     (``mat_mul_ldr``) so no dense intermediate ever carries the ladder,
     and mantissa renormalization is EXACT (power-of-two component
@@ -98,32 +98,6 @@ def _bcast_col(v, shape):
     return type(v)(*(jnp.broadcast_to(c[..., :, None], shape) for c in v))
 
 
-def _df_qr_mode() -> str:
-    """'hybrid' (Pallas panel kernel) on accelerators, 'xla' on CPU.
-
-    Override with DQMC_DF_QR=xla|hybrid.  CPU defaults to the pure-XLA
-    path: the hybrid kernel runs there only in slow interpret mode, and
-    jitted CPU df graphs hit the LLVM contraction bug (module docstring).
-    """
-    import os
-    mode = os.environ.get("DQMC_DF_QR", "").lower()
-    if mode in ("xla", "hybrid"):
-        return mode
-    return "xla" if jax.default_backend() == "cpu" else "hybrid"
-
-
-def _qr(M: DF, nm=df32):
-    if _df_qr_mode() == "hybrid":
-        if nm is df32:
-            from dqmc_tpu.ops.df_qr_kernel import df_qr_hybrid
-            return df_qr_hybrid(M)
-        from dqmc_tpu.ops import tf32 as _tf32
-        if nm is _tf32:
-            from dqmc_tpu.ops.tf_qr_kernel import tf_qr_hybrid
-            return tf_qr_hybrid(M)
-    return df_qr(M, nm=nm)
-
-
 def to_ldr(M: DF, nm=df32) -> LDRdf:
     """Column-presorted multiword QR factorization into L * diag(d) * R.
 
@@ -140,7 +114,7 @@ def to_ldr(M: DF, nm=df32) -> LDRdf:
     sp_safe = jnp.where(sp == 0, jnp.ones_like(sp), sp)
     inv_sp = nm.div(nm.df(jnp.ones_like(sp)), nm.df(sp_safe))
     Mn = nm.mul(Mp, _bcast_row(inv_sp, Mp.hi.shape))
-    Q, Rn = _qr(Mn, nm=nm)
+    Q, Rn = df_qr(Mn, nm=nm)
     dn = _diag(Rn)
     sign = jnp.where(dn.hi < 0, jnp.float32(-1), jnp.float32(1))
     dabs = nm.cmap(lambda c: c * sign, dn)
@@ -164,10 +138,7 @@ def to_ldr(M: DF, nm=df32) -> LDRdf:
                    _bcast_col(inv_sp, R.hi.shape))
     ratio = nm.where(upper, ratio, nm.df(jnp.zeros_like(ratio.hi)))
     R = nm.mul(R, ratio)
-    inv_perm = jnp.argsort(perm, axis=-1)
-    R = nm.cmap(
-        lambda c: jnp.take_along_axis(c, inv_perm[..., None, :], axis=-1),
-        R)
+    R = nm.cmap(lambda c: unpermute_columns(c, perm), R)
     L = nm.cmap(lambda c: c * sign[..., None, :], Q)
     d, e = _renorm_d(d, jnp.zeros(d.hi.shape, jnp.int32), nm=nm)
     return LDRdf(L, d, R, e)
@@ -222,7 +193,7 @@ def mat_mul_ldr(B: DF, F: LDRdf, nm=df32) -> LDRdf:
     mp = nm.cmap(row_take, m)
     ep = row_take(e)
     deadp = row_take(dead_in)
-    Q, Rn = _qr(Mn, nm=nm)
+    Q, Rn = df_qr(Mn, nm=nm)
     dn = _diag(Rn)
     sign = jnp.where(dn.hi < 0, jnp.float32(-1), jnp.float32(1))
     dabs = nm.cmap(lambda cc: cc * sign, dn)
@@ -246,9 +217,7 @@ def mat_mul_ldr(B: DF, F: LDRdf, nm=df32) -> LDRdf:
     ratio = nm.cmap(lambda cc: jnp.ldexp(cc, de), mr)
     ratio = nm.where(upper, ratio, nm.df(jnp.zeros_like(ratio.hi)))
     R1 = nm.mul(R1, ratio)
-    inv_perm = jnp.argsort(perm, axis=-1)
-    R1 = nm.cmap(lambda cc: jnp.take_along_axis(
-        cc, inv_perm[..., None, :], axis=-1), R1)
+    R1 = nm.cmap(lambda cc: unpermute_columns(cc, perm), R1)
     L = nm.cmap(lambda cc: cc * sign[..., None, :], Q)
     R = nm.matmul(R1, F.R)
     return LDRdf(L, d_new, R, e_new)
@@ -297,23 +266,13 @@ def _split_scales(d: DF, e: jax.Array, nm=df32):
     return inv_dl, ds, log_m, e_big
 
 
-def _f32_qr(A_hi: jax.Array):
-    from dqmc_tpu.ops.linalg import _f32_mode
-    if A_hi.dtype == jnp.float32 and _f32_mode() == "cgs2":
-        from dqmc_tpu.ops.qr_kernel import cgs2_qr
-        return cgs2_qr(A_hi)
-    return jnp.linalg.qr(A_hi)
-
-
 def _solve_refined(Mdf: DF, Y: DF, n_ir: int | None = None, nm=df32,
                    Yt: DF | None = None):
     """X = M^{-1} Y and log|det M| via f32 QR + multiword iterative
     refinement.
 
     Each step contracts the error by ~eps32 * cond(M) (~5e-3 at beta=8
-    where cond(M) ~ 4e4).  On TPU the f32 factorization is the CGS2
-    Pallas kernel, whose starting error is a few times Householder's.
-    df32 default n_ir=3: with n_ir=2 the solve dominated the whole
+    where cond(M) ~ 4e4).  df32 default n_ir=3: with n_ir=2 the solve dominated the whole
     chain's error budget (3.6e-7 vs the folds' 1.1e-8 — measured by
     re-solving the same df factors exactly), with 3 it converges to the
     df factor floor.  tf32 default n_ir=8: the ~5e-3 contraction needs
@@ -327,8 +286,8 @@ def _solve_refined(Mdf: DF, Y: DF, n_ir: int | None = None, nm=df32,
     Returns (X, logabs, Xt) when given, (X, logabs) otherwise.
 
     SAFEGUARD: IR converges only while eps32 * cond(M) < 1.  Beyond
-    that (measured on chip with near-random, unthermalized field
-    configurations — round-4 probes) each step AMPLIFIES the error and
+    that (measured with near-random, unthermalized field
+    configurations) each step AMPLIFIES the error and
     3-8 steps turn a ~cond*eps seed error into 1e+5..1e+8 garbage.  The
     loop therefore tracks max|Y - M X| per system and returns the
     iterate with the smallest residual — bit-identical to plain IR
@@ -339,14 +298,10 @@ def _solve_refined(Mdf: DF, Y: DF, n_ir: int | None = None, nm=df32,
         if nm is df32:
             n_ir = 3
         else:
-            # 8 reaches the tf 2^-68 floor; the <1e-10 CONTRACT holds
-            # from ~5 on CPU (gold pins pass at 5 — round 4), but the
-            # chip's CGS2 seed starts further out, so the default stays
-            # at the floor count.  DQMC_TF_NIR overrides for on-chip
-            # A/Bs (trace-time read).
-            import os
-            n_ir = int(os.environ.get("DQMC_TF_NIR", "8"))
-    Q, R = _f32_qr(Mdf.hi)
+            # 8 reaches the tf 2^-68 floor; the <1e-10 contract holds
+            # from ~5 (gold pins pass at 5), the floor count keeps margin
+            n_ir = 8
+    Q, R = jnp.linalg.qr(Mdf.hi)
     QT32 = jnp.swapaxes(Q, -1, -2)
 
     def f32_solve(rhs32):

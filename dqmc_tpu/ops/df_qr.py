@@ -16,9 +16,8 @@ NOTES.md.  Classical Gram-Schmidt with reorthogonalization carried in
 multiword arithmetic resolves the grading down to the arithmetic's
 floor directly.
 
-Structure mirrors the f32 Pallas kernel (ops/qr_kernel.py): 32-column
-panels, two batched panel-external projection passes (multiword matmuls
-on the MXU via the int8 digit-plane scheme), and a ``lax.fori_loop``
+Structure: 32-column panels, two batched panel-external projection
+passes (multiword matmuls via the int8 digit-plane scheme), and a ``lax.fori_loop``
 over the columns inside a panel (two-pass CGS), so the trace/compile
 cost is O(1) in the in-panel column count instead of O(n) — a fully
 unrolled per-column loop at n=256 produced ~100k-primitive graphs that

@@ -1,21 +1,29 @@
-"""Pallas TPU kernels for the DQMC hot ops.
+"""Hopper site-update kernel: one time slice's Metropolis loop per launch.
 
-The profiling story (see bench.py history): one Monte-Carlo sweep is
-dominated not by the O(ns^3) GEMMs (MXU-friendly) but by the *sequential*
-Metropolis site loop — ns dependent steps per time slice, each a handful of
-small vector ops.  As a `lax.scan`, every step pays XLA op-dispatch
-latency (~12us/site at ns=256).  This module implements the entire site
-loop as ONE Pallas program per walker: the Green's function stays resident
-in VMEM, each site does a dynamic row/column read, a scalar Metropolis
-decision in SMEM, and a rank-1 VPU outer-product accumulate — no HBM
-traffic and no per-op dispatch inside the loop.
+Each time slice makes ns sequential single-site decisions.  Under XLA every
+decision is a loop iteration of several small GPU kernels, so the loop is
+bound by launch latency rather than arithmetic.  This module runs the whole
+slice as ONE Pallas program per walker, compiled through Triton:
 
-The random stream (visit order, proposals, uniforms) is drawn OUTSIDE with
-jax.random and passed in, so the kernel reproduces the exact Markov chain
-of engine.sweep.local_update_slice (asserted in tests via interpret mode).
+- the walker's Green's function stays in device memory (16 walkers x
+  256 KiB at ns=256 sit in the 50 MB L2); each site loads row i and
+  column i of G;
+- accepted rank-1 updates accumulate in delayed-update buffers
+  U^T, V (k x ns_pad), carried through the site loop as register values
+  (effective row/column of G at O(k ns) per site, as in
+  engine.sweep.local_update_slice_delayed);
+- every k sites the buffers flush as G += U V, in row tiles with a
+  full-precision tiled dot.
 
-Single stored flavor (spin-symmetric attractive model, det_power=2) is
-specialized here; multi-flavor models use the scan path.
+Lattices are padded to a power-of-two lane width (Triton blocks) with zero
+rows/columns that no decision touches.  The random stream (visit order
+shared by the batch, per-walker proposals and uniforms) is drawn outside
+with jax.random and passed in, so given the same stream the kernel
+realizes the exact chain of engine.sweep.local_update_core.
+
+Single stored flavor (spin-symmetric attractive model, det_power = 2)
+only; the coupling scalars (g, alpha) are per walker, so a
+replica-by-walker tempering batch runs as one launch.
 """
 
 from __future__ import annotations
@@ -25,1066 +33,260 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
+
+from dqmc_tpu import hsfield, platform
+
+# Largest lattice the kernel serves: the two (k, ns_pad) buffers live in
+# registers, 2 * 32 * 256 floats over _NUM_WARPS * 32 threads.
+MAX_SITES = 256
+_NUM_WARPS = 8
+_ROW_TILE = 32
 
 
-def _update_kernel(scal_ref, table_ref, fields_in_ref, order_ref, props_ref,
-                   us_ref, g_in_ref, g_ref, fields_ref, acc_ref):
-    """One walker's full-slice Metropolis sweep, VMEM-resident.
+def padded_sites(ns: int) -> int:
+    """Lane width of the kernel's blocks: the next power of two, at least
+    16 (the smallest operand a Triton dot takes)."""
+    return max(16, 1 << (ns - 1).bit_length())
 
-    SMEM refs: scal (1, 10) f32 = [g, alpha, eta0..3, gamma0..3]:
-               table (4, 3) i32, fields/order/props (1, ns) i32, us (1, ns)
-               f32, acc (1, 1) f32 out.
-    VMEM refs: g_in / g (1, ns, ns) f32 (aliased in/out).
+
+def flush_rank(k_delay: int, ns_pad: int) -> int:
+    """Delayed-update rank the kernel runs: a power of two in [16, 32]
+    (dot operands need >= 16 rows), and no wider than the lattice."""
+    k = 16 if k_delay <= 16 else 32
+    return min(k, ns_pad)
+
+
+def _lut(table, s, dtype):
+    out = jnp.asarray(float(table[0]), dtype)
+    for v in range(1, 4):
+        out = jnp.where(s == v, jnp.asarray(float(table[v]), dtype), out)
+    return out
+
+
+def _site_kernel(ns, k, interpret, ga_ref, order_ref, props_ref, us_ref,
+                 fields_in_ref, g_in_ref, g_ref, fields_ref, acc_ref,
+                 ut_ref):
+    """Program w: walker w's full slice.
+
+    ga (W, 2) = per-walker [g, alpha]; order (nb*k,) shared visit order;
+    props/us (W, nb*k) per-walker streams; fields (W, np); G (W, np, np)
+    updated in place (g_in aliases g); acc (W,); ut (W, k, np) is the
+    staging buffer the flush reads U^T tiles from.
     """
-    ns = g_ref.shape[-1]
+    del g_in_ref  # aliased with g_ref
+    w = pl.program_id(0)
+    n_pad = g_ref.shape[-1]
+    n_blocks = order_ref.shape[0] // k
     dtype = g_ref.dtype
-    g_ref[...] = g_in_ref[...]
+    tile = min(_ROW_TILE, n_pad)
+    g_hs = ga_ref[w, 0]
+    alpha = ga_ref[w, 1]
+    lanes = jax.lax.iota(jnp.int32, n_pad)
+    slots = jax.lax.iota(jnp.int32, k)
+    zero = jnp.asarray(0.0, dtype)
+    one = jnp.asarray(1.0, dtype)
 
-    # SMEM supports scalar access only: copy the field row element-wise
-    def copy_field(j, _):
-        fields_ref[0, j] = fields_in_ref[0, j]
-        return jnp.int32(0)  # i32 carry: i64 does not lower in Mosaic
+    def barrier():
+        # stores to G / ut by some threads must be visible to the loads
+        # of others; the interpreter runs sequentially and needs none
+        if not interpret:
+            pltriton.debug_barrier()
 
-    jax.lax.fori_loop(jnp.int32(0), jnp.int32(ns), copy_field, jnp.int32(0))
+    def block(b, carry):
+        fields, acc = carry
 
-    g_hs = scal_ref[0, 0]
-    alpha = scal_ref[0, 1]
-    col_ids = jax.lax.broadcasted_iota(jnp.int32, (1, ns), 1)
-    row_ids = jax.lax.broadcasted_iota(jnp.int32, (ns, 1), 0)
+        def site(t, c):
+            ut, v, fields, acc = c
+            idx = b * k + t
+            i = order_ref[idx]
+            r = props_ref[w, idx]
+            u = us_ref[w, idx]
+            onehot = lanes == i
+            old = jnp.sum(jnp.where(onehot, fields, 0), dtype=jnp.int32)
+            new = r + (r >= old).astype(jnp.int32)   # hsfield.PROPOSAL
+            d_eta = (_lut(hsfield.ETA, new, dtype)
+                     - _lut(hsfield.ETA, old, dtype))
+            gamma_r = (_lut(hsfield.GAMMA, new, dtype)
+                       / _lut(hsfield.GAMMA, old, dtype))
+            boson_r = jnp.exp(alpha * g_hs * d_eta)
+            delta = jnp.expm1(g_hs * d_eta)
+            # effective row/column of G under the pending rank-t update
+            sel = onehot[None, :]
+            ucoef = jnp.sum(jnp.where(sel, ut, zero), axis=1)   # U[i, :]
+            vcoef = jnp.sum(jnp.where(sel, v, zero), axis=1)    # V[:, i]
+            row = g_ref[w, i, :] + jnp.sum(ucoef[:, None] * v, axis=0)
+            col = g_ref[w, :, i] + jnp.sum(vcoef[:, None] * ut, axis=0)
+            g_ii = jnp.sum(jnp.where(onehot, row, zero))
+            r_flv = one + (one - g_ii) * delta
+            ratio = gamma_r * boson_r * r_flv * r_flv
+            accept = (idx < ns) & (u < jnp.minimum(one, jnp.abs(ratio)))
+            prefac = jnp.where(accept, delta / r_flv, zero)
+            hit = (slots == t)[:, None]
+            ut = jnp.where(hit, (prefac * col)[None, :], ut)
+            v = jnp.where(hit, (row - onehot.astype(dtype))[None, :], v)
+            fields = jnp.where(onehot & accept, new, fields)
+            return ut, v, fields, acc + accept.astype(dtype)
 
-    def eta(s):
-        return scal_ref[0, 2 + s]
+        buf = jnp.zeros((k, n_pad), dtype)
+        ut, v, fields, acc = jax.lax.fori_loop(
+            jnp.int32(0), jnp.int32(k), site, (buf, buf, fields, acc))
 
-    def gamma(s):
-        return scal_ref[0, 6 + s]
+        # flush G += U V = ut^T v, one row tile at a time
+        ut_ref[w, :, :] = ut
+        barrier()
 
-    def body(idx, acc):
-        i = order_ref[0, idx]
-        old = fields_ref[0, i]
-        new = table_ref[old, props_ref[0, idx]]
-        u = us_ref[0, idx]
-        d_eta = eta(new) - eta(old)
-        gammaR = gamma(new) / gamma(old)
-        bosonR = jnp.exp(alpha * g_hs * d_eta)
-        delta = jnp.exp(g_hs * d_eta) - 1.0  # expm1 not lowered on TPU pallas
-        row = g_ref[0, pl.ds(i, 1), :]               # (1, ns)
-        onehot = jnp.where(col_ids == i, jnp.asarray(1.0, dtype),
-                           jnp.asarray(0.0, dtype))  # (1, ns)
-        G_ii = jnp.sum(row * onehot)
-        r_flv = 1.0 + (1.0 - G_ii) * delta
-        # spin-symmetric attractive model: determinant ratio squared
-        R = gammaR * bosonR * r_flv * r_flv
-        accept = u < jnp.minimum(jnp.asarray(1.0, dtype), jnp.abs(R))
+        def flush(j, carry):
+            rows = pl.ds(pl.multiple_of(j * tile, tile), tile)
+            g_ref[w, rows, :] += jax.lax.dot_general(
+                ut_ref[w, :, rows], v, (((0,), (0,)), ((), ())),
+                precision=jax.lax.Precision.HIGHEST,
+                preferred_element_type=dtype)
+            return carry
 
-        @pl.when(accept)
-        def _():
-            prefac = delta / r_flv
-            # column via row-select + reduce (lane-dynamic slices are slow):
-            # col[j] = G[j, i] = sum_k G[j, k] * onehot_i[k]
-            col = jnp.sum(g_ref[0, :, :] * onehot, axis=1,
-                          keepdims=True)                     # (ns, 1)
-            v = row - onehot
-            g_ref[0, :, :] += (prefac * col) * v             # rank-1 VPU
-            fields_ref[0, i] = new
+        jax.lax.fori_loop(jnp.int32(0), jnp.int32(n_pad // tile), flush,
+                          jnp.int32(0))
+        barrier()
+        return fields, acc
 
-        return acc + accept.astype(dtype)
-
-    acc = jax.lax.fori_loop(jnp.int32(0), jnp.int32(ns), body,
-                            jnp.asarray(0.0, dtype))
-    acc_ref[0, 0] = acc / ns
-
-
-# ----------------------------------------------------------------------
-# walker-batched delayed-update kernel
-# ----------------------------------------------------------------------
-#
-# vmapping the per-walker kernel adds a grid dimension => walkers run
-# SEQUENTIALLY on the single TensorCore and throughput saturates (~26
-# sweeps/s regardless of walker count).  This kernel processes a whole
-# walker block in one program:
-#
-# - the site visit order is SHARED across the walkers of a device (each
-#   chain is still exactly Metropolis — the order is state-independent —
-#   and proposals/uniforms stay per-walker, so chains remain independent);
-# - per site, only the *effective* row/column of G under the pending
-#   low-rank updates is formed:  O(W ns k) VPU work against the U/V
-#   buffers (delayed-update scheme);
-# - every k sites the buffers flush as TWO batched rank-k MXU GEMMs
-#   (G += U V and its transpose image GT += V^T U^T; GT is kept so column
-#   reads are sublane-dynamic row reads instead of lane-dynamic slices).
-#
-# VMEM budget per program: 2*WB*ns^2 + 2*WB*k*ns floats; the wrapper picks
-# the walker-block size WB accordingly and grids over blocks.
-
-
-def _batched_update_kernel(k_delay, scal_ref, ga_ref, order_ref, props_ref,
-                           us_ref, fields_in_ref, g_in_ref, g_ref, fields_ref,
-                           acc_ref, gt_ref, ut_ref, v_ref):
-    """Refs:
-      SMEM: scal (1, 8) f32 = [eta0..3, gamma0..3];
-            order (1, ns) i32 (shared visit order)
-      VMEM: ga (WB, 2) f32 = per-walker [g_coupling, alpha] — a COLUMN of
-            scalars rather than an SMEM constant, so one program can batch
-            walkers of different parallel-tempering replicas (different
-            beta => different dtau => different coupling);
-            props (ns, WB) i32, us (ns, WB) f32 — per-walker streams,
-            site-major so each site reads one row;
-            fields_in/fields (WB, ns) i32; g_in/g (WB, ns, ns) f32 (aliased)
-      out:  acc (1, WB) f32
-      scratch: gt (WB, ns, ns); ut, v (WB, k, ns)
-    """
-    WB, ns = g_ref.shape[0], g_ref.shape[-1]
-    dtype = g_ref.dtype
-    g_ref[...] = g_in_ref[...]
-    gt_ref[...] = jnp.swapaxes(g_in_ref[...], -1, -2)
-    fields_ref[...] = fields_in_ref[...]
-    ut_ref[...] = jnp.zeros_like(ut_ref)
-    v_ref[...] = jnp.zeros_like(v_ref)
-
-    g_hs = ga_ref[:, 0:1]                                # (WB, 1)
-    alpha = ga_ref[:, 1:2]                               # (WB, 1)
-    lane_ids = jax.lax.broadcasted_iota(jnp.int32, (1, ns), 1)
-
-    def lut(base, s):
-        """scal lookup at offset base+s for a (WB, 1) int vector s."""
-        out = jnp.zeros(s.shape, dtype)
-        for v4 in range(4):
-            out = jnp.where(s == v4, scal_ref[0, base + v4], out)
-        return out
-
-    def body(idx, acc):
-        slot = jax.lax.rem(idx, jnp.int32(k_delay))
-        i = order_ref[0, idx]
-        onehot = jnp.where(lane_ids == i, jnp.asarray(1.0, dtype),
-                           jnp.asarray(0.0, dtype))          # (1, ns)
-
-        fields = fields_ref[...]                             # (WB, ns)
-        # dtype pinned: jnp.sum would promote i32 -> i64 under x64, which
-        # Mosaic cannot lower
-        old = jnp.sum(fields * (lane_ids == i), axis=1,
-                      keepdims=True, dtype=jnp.int32)        # (WB, 1)
-        r = props_ref[pl.ds(idx, 1), :].reshape(WB, 1)
-        new = r + (r >= old).astype(r.dtype)                 # skip-old trick
-        u = us_ref[pl.ds(idx, 1), :].reshape(WB, 1)
-
-        d_eta = lut(0, new) - lut(0, old)
-        gammaR = lut(4, new) / lut(4, old)
-        bosonR = jnp.exp(alpha * g_hs * d_eta)
-        delta = jnp.exp(g_hs * d_eta) - 1.0                  # (WB, 1)
-
-        row_g = g_ref[:, pl.ds(i, 1), :].reshape(WB, ns)
-        col_g = gt_ref[:, pl.ds(i, 1), :].reshape(WB, ns)
-        ut_all = ut_ref[...]                                 # (WB, k, ns)
-        v_all = v_ref[...]
-        ucoef = jnp.sum(ut_all * onehot[None], axis=2)       # (WB, k) = U[i,:]
-        vcoef = jnp.sum(v_all * onehot[None], axis=2)        # (WB, k) = V[:,i]
-        row_eff = row_g + jnp.sum(ucoef[:, :, None] * v_all, axis=1)
-        col_eff = col_g + jnp.sum(vcoef[:, :, None] * ut_all, axis=1)
-        G_ii = jnp.sum(row_eff * onehot, axis=1, keepdims=True)
-
-        r_flv = 1.0 + (1.0 - G_ii) * delta
-        R = gammaR * bosonR * r_flv * r_flv
-        accept = u < jnp.minimum(jnp.asarray(1.0, dtype), jnp.abs(R))
-        prefac = jnp.where(accept, delta / r_flv,
-                           jnp.zeros_like(delta))            # (WB, 1)
-
-        ut_ref[:, pl.ds(slot, 1), :] = (prefac * col_eff)[:, None, :]
-        v_ref[:, pl.ds(slot, 1), :] = (row_eff - onehot)[:, None, :]
-        fields_ref[...] = jnp.where((lane_ids == i) & accept,
-                                    new.astype(fields.dtype), fields)
-
-        @pl.when(slot == k_delay - 1)
-        def _flush():
-            dn = (((1,), (1,)), ((0,), (0,)))  # contract k, batch WB
-            # HIGHEST is load-bearing: Mosaic's DEFAULT dot truncates f32
-            # operands to bf16 on the MXU, and a ~1e-2-relative flush error
-            # on G flips marginal Metropolis decisions (measured on-chip:
-            # k_delay=32 chains diverge from the rank-1 scan under DEFAULT,
-            # match under HIGHEST; interpret mode cannot see this).
-            hp = jax.lax.Precision.HIGHEST
-            g_ref[...] += jax.lax.dot_general(
-                ut_ref[...], v_ref[...], dn, preferred_element_type=dtype,
-                precision=hp)
-            gt_ref[...] += jax.lax.dot_general(
-                v_ref[...], ut_ref[...], dn, preferred_element_type=dtype,
-                precision=hp)
-            ut_ref[...] = jnp.zeros_like(ut_ref)
-            v_ref[...] = jnp.zeros_like(v_ref)
-
-        return acc + accept.astype(dtype).reshape(1, WB)
-
-    acc = jax.lax.fori_loop(jnp.int32(0), jnp.int32(ns), body,
-                            jnp.zeros((1, WB), dtype))
-    acc_ref[...] = acc / ns
-
-
-def _batched_update_kernel_2f(k_delay, scal_ref, ga_ref, order_ref,
-                              props_ref, us_ref, fields_in_ref,
-                              gu_in_ref, gd_in_ref,
-                              gu_ref, gd_ref, fields_ref, acc_ref, sgn_ref,
-                              gtu_ref, gtd_ref,
-                              utu_ref, vu_ref, utd_ref, vd_ref):
-    """Two-flavor (repulsive spin-channel) variant of the batched kernel.
-
-    The flavors see OPPOSITE couplings (delta_up = expm1(+g d_eta),
-    delta_dn = expm1(-g d_eta), models/repulsive_hubbard.py:117-124) and
-    the determinant ratio enters ONCE per flavor (det_power = 1):
-    R = gammaR * bosonR * r_up * r_dn, Metropolis on |R| with the
-    configuration sign flipping on accepted negative-R moves
-    (engine/sweep.py local_update_core).  Everything else — delayed
-    rank-k buffers per flavor, shared visit order, per-walker coupling
-    columns — mirrors _batched_update_kernel.
-
-    Extra refs vs the 1-flavor kernel: a second G (in/out + transpose
-    scratch + U/V scratch) and the (1, WB) sign output.
-    """
-    WB, ns = gu_ref.shape[0], gu_ref.shape[-1]
-    dtype = gu_ref.dtype
-    gu_ref[...] = gu_in_ref[...]
-    gd_ref[...] = gd_in_ref[...]
-    gtu_ref[...] = jnp.swapaxes(gu_in_ref[...], -1, -2)
-    gtd_ref[...] = jnp.swapaxes(gd_in_ref[...], -1, -2)
-    fields_ref[...] = fields_in_ref[...]
-    for ref in (utu_ref, vu_ref, utd_ref, vd_ref):
-        ref[...] = jnp.zeros_like(ref)
-
-    g_hs = ga_ref[:, 0:1]                                # (WB, 1)
-    alpha = ga_ref[:, 1:2]                               # (WB, 1)
-    lane_ids = jax.lax.broadcasted_iota(jnp.int32, (1, ns), 1)
-
-    def lut(base, s):
-        out = jnp.zeros(s.shape, dtype)
-        for v4 in range(4):
-            out = jnp.where(s == v4, scal_ref[0, base + v4], out)
-        return out
-
-    def eff(g_ref_, gt_ref_, ut_ref_, v_ref_, i, onehot):
-        """(row_eff, col_eff, pending coef vectors) of one flavor."""
-        row_g = g_ref_[:, pl.ds(i, 1), :].reshape(WB, ns)
-        col_g = gt_ref_[:, pl.ds(i, 1), :].reshape(WB, ns)
-        ut_all = ut_ref_[...]
-        v_all = v_ref_[...]
-        ucoef = jnp.sum(ut_all * onehot[None], axis=2)
-        vcoef = jnp.sum(v_all * onehot[None], axis=2)
-        row_eff = row_g + jnp.sum(ucoef[:, :, None] * v_all, axis=1)
-        col_eff = col_g + jnp.sum(vcoef[:, :, None] * ut_all, axis=1)
-        return row_eff, col_eff
-
-    def body(idx, carry):
-        acc, sgn = carry
-        slot = jax.lax.rem(idx, jnp.int32(k_delay))
-        i = order_ref[0, idx]
-        onehot = jnp.where(lane_ids == i, jnp.asarray(1.0, dtype),
-                           jnp.asarray(0.0, dtype))
-
-        fields = fields_ref[...]
-        old = jnp.sum(fields * (lane_ids == i), axis=1,
-                      keepdims=True, dtype=jnp.int32)
-        r = props_ref[pl.ds(idx, 1), :].reshape(WB, 1)
-        new = r + (r >= old).astype(r.dtype)
-        u = us_ref[pl.ds(idx, 1), :].reshape(WB, 1)
-
-        d_eta = lut(0, new) - lut(0, old)
-        gammaR = lut(4, new) / lut(4, old)
-        bosonR = jnp.exp(alpha * g_hs * d_eta)
-        x = g_hs * d_eta
-        delta_u = jnp.exp(x) - 1.0
-        delta_d = jnp.exp(-x) - 1.0
-
-        row_u, col_u = eff(gu_ref, gtu_ref, utu_ref, vu_ref, i, onehot)
-        row_d, col_d = eff(gd_ref, gtd_ref, utd_ref, vd_ref, i, onehot)
-        Gii_u = jnp.sum(row_u * onehot, axis=1, keepdims=True)
-        Gii_d = jnp.sum(row_d * onehot, axis=1, keepdims=True)
-
-        r_up = 1.0 + (1.0 - Gii_u) * delta_u
-        r_dn = 1.0 + (1.0 - Gii_d) * delta_d
-        R = gammaR * bosonR * r_up * r_dn
-        accept = u < jnp.minimum(jnp.asarray(1.0, dtype), jnp.abs(R))
-        sgn = sgn * jnp.where((accept & (R < 0)).reshape(1, WB),
-                              jnp.asarray(-1.0, dtype),
-                              jnp.asarray(1.0, dtype))
-        pre_u = jnp.where(accept, delta_u / r_up, jnp.zeros_like(delta_u))
-        pre_d = jnp.where(accept, delta_d / r_dn, jnp.zeros_like(delta_d))
-
-        utu_ref[:, pl.ds(slot, 1), :] = (pre_u * col_u)[:, None, :]
-        vu_ref[:, pl.ds(slot, 1), :] = (row_u - onehot)[:, None, :]
-        utd_ref[:, pl.ds(slot, 1), :] = (pre_d * col_d)[:, None, :]
-        vd_ref[:, pl.ds(slot, 1), :] = (row_d - onehot)[:, None, :]
-        fields_ref[...] = jnp.where((lane_ids == i) & accept,
-                                    new.astype(fields.dtype), fields)
-
-        @pl.when(slot == k_delay - 1)
-        def _flush():
-            dn = (((1,), (1,)), ((0,), (0,)))
-            # HIGHEST for the same reason as the 1-flavor kernel: DEFAULT
-            # truncates the U/V operands to bf16 on the MXU and the flush
-            # error flips marginal accept decisions on-chip.
-            hp = jax.lax.Precision.HIGHEST
-            gu_ref[...] += jax.lax.dot_general(
-                utu_ref[...], vu_ref[...], dn, preferred_element_type=dtype,
-                precision=hp)
-            gtu_ref[...] += jax.lax.dot_general(
-                vu_ref[...], utu_ref[...], dn, preferred_element_type=dtype,
-                precision=hp)
-            gd_ref[...] += jax.lax.dot_general(
-                utd_ref[...], vd_ref[...], dn, preferred_element_type=dtype,
-                precision=hp)
-            gtd_ref[...] += jax.lax.dot_general(
-                vd_ref[...], utd_ref[...], dn, preferred_element_type=dtype,
-                precision=hp)
-            for ref in (utu_ref, vu_ref, utd_ref, vd_ref):
-                ref[...] = jnp.zeros_like(ref)
-
-        return (acc + accept.astype(dtype).reshape(1, WB), sgn)
-
-    acc, sgn = jax.lax.fori_loop(
-        jnp.int32(0), jnp.int32(ns), body,
-        (jnp.zeros((1, WB), dtype), jnp.ones((1, WB), dtype)))
-    acc_ref[...] = acc / ns
-    sgn_ref[...] = sgn
-
-
-def _pick_block(W: int, ns: int, k: int, itemsize: int = 4,
-                budget: int = 80 * 2**20) -> int:
-    # ~6 (ns, ns_pad)-sized live buffers per walker (G, GT, U/V, pipeline
-    # double-buffers); lanes pad to 128; v5e VMEM is 128 MB with the
-    # scoped cap raised (see pallas_call compiler_params)
-    ns_pad = -(-ns // 128) * 128
-    per_walker = (6 * ns * ns_pad + 3 * k * ns_pad) * itemsize
-    wb = max(1, min(W, budget // max(per_walker, 1)))
-    while W % wb:
-        wb -= 1
-    return wb
+    fields, acc = jax.lax.fori_loop(
+        jnp.int32(0), jnp.int32(n_blocks), block,
+        (fields_in_ref[w, :], jnp.asarray(0.0, dtype)))
+    fields_ref[w, :] = fields
+    acc_ref[w] = acc / ns
 
 
 @functools.partial(jax.jit, static_argnames=("k_delay", "interpret"))
-def _metropolis_batched_impl(g_vec: jax.Array, alpha_vec: jax.Array,
-                             keys: jax.Array, G: jax.Array,
-                             fields: jax.Array, *, k_delay: int = 32,
-                             interpret: bool = False):
-    """Batched site update over a flat walker axis with PER-WALKER coupling
-    scalars (g, alpha) — serves plain walker batches and mixed
-    replica-by-walker batches (parallel tempering) with one kernel.
+def site_update_batched(g_vec: jax.Array, alpha_vec: jax.Array,
+                        keys: jax.Array, G: jax.Array, fields: jax.Array, *,
+                        k_delay: int = 32, interpret: bool = False):
+    """One slice's site update for a flat batch of walkers.
 
-    g_vec/alpha_vec: (W,); keys: (W, ...); G: (W, 1, ns, ns);
-    fields: (W, ns).  The visit order is shared across the batch (drawn
-    from keys[0]; state-independent, so each chain is still exactly
-    Metropolis); proposals and uniforms are per-walker.
+    g_vec/alpha_vec: (W,) per-walker coupling scalars; keys: (W, ...);
+    G: (W, 1, ns, ns); fields: (W, ns).  The visit order is shared across
+    the batch (drawn from keys[0]; state-independent, so each chain is
+    still exactly Metropolis); proposals and uniforms are per walker.
     Returns (G, fields, acc (W,)).
+
+    interpret=True runs the kernel in the Pallas interpreter (tests); the
+    compiled kernel needs a GPU and raises elsewhere.
     """
-    from dqmc_tpu import hsfield
     from dqmc_tpu.engine.sweep import draw_slice_randoms
 
     W, nfl, ns, _ = G.shape
-    assert nfl == 1
+    if nfl != 1:
+        raise ValueError("the site kernel serves one stored flavor")
+    if ns > MAX_SITES:
+        raise ValueError(f"the site kernel serves ns <= {MAX_SITES}, "
+                         f"got {ns}")
+    if not interpret:
+        platform.require_gpu("the Triton site-update kernel")
     dtype = G.dtype
-    if ns % k_delay:
-        k_delay = next(k for k in (16, 8, 4, 2, 1) if ns % k == 0)
+    n_pad = padded_sites(ns)
+    k = flush_rank(k_delay, n_pad)
+    n_stream = -(-ns // k) * k
 
     order, _, _ = draw_slice_randoms(keys[0], ns, dtype)
-    _, props, us = jax.vmap(
-        lambda k: draw_slice_randoms(k, ns, dtype))(keys)
-    props_t = props.astype(jnp.int32).T          # (ns, W)
-    us_t = us.T                                  # (ns, W)
-
-    scal = jnp.concatenate([
-        jnp.asarray(hsfield.ETA, dtype),
-        jnp.asarray(hsfield.GAMMA, dtype),
-    ]).reshape(1, 8)
-    ga = jnp.stack([g_vec.astype(dtype), alpha_vec.astype(dtype)],
-                   axis=1)                       # (W, 2)
-
-    WB = _pick_block(W, ns, k_delay, jnp.dtype(dtype).itemsize)
-    kern = functools.partial(_batched_update_kernel, k_delay)
-
-    def call_block(ga_b, props_b, us_b, fields_b, G_b):
-        # one program over a full walker block — all block shapes equal the
-        # array dims, satisfying the TPU lane/sublane blocking rules
-        return pl.pallas_call(
-            kern,
-            out_shape=(
-                jax.ShapeDtypeStruct((WB, ns, ns), dtype),
-                jax.ShapeDtypeStruct((WB, ns), jnp.int32),
-                jax.ShapeDtypeStruct((1, WB), dtype),
-            ),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),   # scal
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # ga
-                pl.BlockSpec(memory_space=pltpu.SMEM),   # order
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # props
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # us
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # fields in
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # G in
-            ],
-            out_specs=(
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((WB, ns, ns), dtype),       # GT
-                pltpu.VMEM((WB, k_delay, ns), dtype),  # Ut
-                pltpu.VMEM((WB, k_delay, ns), dtype),  # V
-            ],
-            input_output_aliases={6: 0},
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=100 * 2**20),
-            interpret=interpret,
-        )(scal, ga_b, order.astype(jnp.int32).reshape(1, ns), props_b, us_b,
-          fields_b, G_b)
-
-    n_blocks = W // WB
-    if n_blocks == 1:
-        G_new, fields_new, acc = call_block(
-            ga, props_t, us_t, fields.astype(jnp.int32),
-            G.reshape(W, ns, ns))
-    else:
-        # chunk the walker axis; vmap adds a (sequential) grid dimension
-        G_new, fields_new, acc = jax.vmap(call_block)(
-            ga.reshape(n_blocks, WB, 2),
-            props_t.T.reshape(n_blocks, WB, ns).transpose(0, 2, 1),
-            us_t.T.reshape(n_blocks, WB, ns).transpose(0, 2, 1),
-            fields.astype(jnp.int32).reshape(n_blocks, WB, ns),
-            G.reshape(n_blocks, WB, ns, ns))
-
-    return (G_new.reshape(W, 1, ns, ns), fields_new.reshape(W, ns),
-            acc.reshape(W))
-
-
-@functools.partial(jax.jit, static_argnames=("k_delay", "interpret"))
-def _metropolis_batched_2f_impl(g_vec: jax.Array, alpha_vec: jax.Array,
-                                keys: jax.Array, G: jax.Array,
-                                fields: jax.Array, *, k_delay: int = 32,
-                                interpret: bool = False):
-    """Two-flavor batched site update (repulsive spin-channel decoupling).
-
-    G: (W, 2, ns, ns); returns (G, fields, acc (W,), sgn (W,)) where sgn
-    is the PRODUCT of this slice's Metropolis sign flips (multiply into
-    the walker's running sign).  Stream contract identical to
-    _metropolis_batched_impl (shared visit order from keys[0])."""
-    from dqmc_tpu import hsfield
-    from dqmc_tpu.engine.sweep import draw_slice_randoms
-
-    W, nfl, ns, _ = G.shape
-    assert nfl == 2
-    dtype = G.dtype
-    if ns % k_delay:
-        k_delay = next(k for k in (16, 8, 4, 2, 1) if ns % k == 0)
-
-    order, _, _ = draw_slice_randoms(keys[0], ns, dtype)
-    _, props, us = jax.vmap(
-        lambda k: draw_slice_randoms(k, ns, dtype))(keys)
-    props_t = props.astype(jnp.int32).T
-    us_t = us.T
-
-    scal = jnp.concatenate([
-        jnp.asarray(hsfield.ETA, dtype),
-        jnp.asarray(hsfield.GAMMA, dtype),
-    ]).reshape(1, 8)
+    _, props, us = jax.vmap(lambda kk: draw_slice_randoms(kk, ns, dtype))(
+        keys)
+    tail = n_stream - ns
+    order = jnp.pad(order.astype(jnp.int32), (0, tail))
+    props = jnp.pad(props.astype(jnp.int32), ((0, 0), (0, tail)))
+    us = jnp.pad(us, ((0, 0), (0, tail)), constant_values=1.0)
+    pad = n_pad - ns
+    G_p = jnp.pad(G.reshape(W, ns, ns), ((0, 0), (0, pad), (0, pad)))
+    f_p = jnp.pad(fields.astype(jnp.int32), ((0, 0), (0, pad)))
     ga = jnp.stack([g_vec.astype(dtype), alpha_vec.astype(dtype)], axis=1)
 
-    # two G-sized in/out pairs + two transpose scratches per walker
-    WB = _pick_block(W, ns, k_delay, 2 * jnp.dtype(dtype).itemsize)
-    kern = functools.partial(_batched_update_kernel_2f, k_delay)
+    G_new, f_new, acc, _ = pl.pallas_call(
+        functools.partial(_site_kernel, ns, k, interpret),
+        out_shape=(
+            jax.ShapeDtypeStruct((W, n_pad, n_pad), dtype),
+            jax.ShapeDtypeStruct((W, n_pad), jnp.int32),
+            jax.ShapeDtypeStruct((W,), dtype),
+            jax.ShapeDtypeStruct((W, k, n_pad), dtype),
+        ),
+        grid=(W,),
+        input_output_aliases={5: 0},
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=_NUM_WARPS,
+                                                num_stages=1),
+        interpret=interpret,
+        name="dqmc_site_update",
+    )(ga, order, props, us, f_p, G_p)
 
-    def call_block(ga_b, props_b, us_b, fields_b, Gu_b, Gd_b):
-        return pl.pallas_call(
-            kern,
-            out_shape=(
-                jax.ShapeDtypeStruct((WB, ns, ns), dtype),   # Gu
-                jax.ShapeDtypeStruct((WB, ns, ns), dtype),   # Gd
-                jax.ShapeDtypeStruct((WB, ns), jnp.int32),
-                jax.ShapeDtypeStruct((1, WB), dtype),        # acc
-                jax.ShapeDtypeStruct((1, WB), dtype),        # sgn
-            ),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),   # scal
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # ga
-                pl.BlockSpec(memory_space=pltpu.SMEM),   # order
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # props
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # us
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # fields in
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # Gu in
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # Gd in
-            ],
-            out_specs=tuple(pl.BlockSpec(memory_space=pltpu.VMEM)
-                            for _ in range(5)),
-            scratch_shapes=[
-                pltpu.VMEM((WB, ns, ns), dtype),       # GTu
-                pltpu.VMEM((WB, ns, ns), dtype),       # GTd
-                pltpu.VMEM((WB, k_delay, ns), dtype),  # Ut up
-                pltpu.VMEM((WB, k_delay, ns), dtype),  # V  up
-                pltpu.VMEM((WB, k_delay, ns), dtype),  # Ut dn
-                pltpu.VMEM((WB, k_delay, ns), dtype),  # V  dn
-            ],
-            input_output_aliases={6: 0, 7: 1},
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=100 * 2**20),
-            interpret=interpret,
-        )(scal, ga_b, order.astype(jnp.int32).reshape(1, ns), props_b, us_b,
-          fields_b, Gu_b, Gd_b)
-
-    n_blocks = W // WB
-    if n_blocks == 1:
-        Gu, Gd, fields_new, acc, sgn = call_block(
-            ga, props_t, us_t, fields.astype(jnp.int32), G[:, 0], G[:, 1])
-    else:
-        # walker-major (W, ns) -> per-block site-major (n_blocks, ns, WB)
-        tv = lambda x: x.reshape(n_blocks, WB, ns).transpose(0, 2, 1)
-        Gu, Gd, fields_new, acc, sgn = jax.vmap(call_block)(
-            ga.reshape(n_blocks, WB, 2), tv(props_t.T), tv(us_t.T),
-            fields.astype(jnp.int32).reshape(n_blocks, WB, ns),
-            G[:, 0].reshape(n_blocks, WB, ns, ns),
-            G[:, 1].reshape(n_blocks, WB, ns, ns))
-
-    G_new = jnp.stack([Gu.reshape(W, ns, ns), Gd.reshape(W, ns, ns)],
-                      axis=1)
-    return (G_new, fields_new.reshape(W, ns), acc.reshape(W),
-            sgn.reshape(W))
+    return (G_new[:, None, :ns, :ns], f_new[:, :ns].astype(fields.dtype),
+            acc)
 
 
 def metropolis_slice_update_batched(model, keys: jax.Array, G: jax.Array,
                                     fields: jax.Array, *, k_delay: int = 32,
                                     interpret: bool = False):
-    """Walker-batched site update for a single (unbatched) model — a thin
-    wrapper that broadcasts the model's coupling scalars; see
-    _metropolis_batched_impl."""
+    """site_update_batched for one (unbatched) model: its coupling scalars
+    broadcast over the walker axis."""
     W = G.shape[0]
     g_vec = jnp.broadcast_to(model.g, (W,))
     alpha_vec = jnp.broadcast_to(model.alpha, (W,))
-    return _metropolis_batched_impl(g_vec, alpha_vec, keys, G, fields,
-                                    k_delay=k_delay, interpret=interpret)
+    return site_update_batched(g_vec, alpha_vec, keys, G, fields,
+                               k_delay=k_delay, interpret=interpret)
 
 
 # ----------------------------------------------------------------------
-# walker-batched SUBMATRIX-update kernel
-# ----------------------------------------------------------------------
-#
-# The delayed kernel above forms each candidate's effective G row/column
-# against the pending (k, ns) buffers — O(WB k ns) VPU work per site, the
-# dominant sequential cost at large ns.  This kernel implements the
-# submatrix scheme (engine/sweep.local_update_slice_submatrix, Nukala et
-# al. PRB 81 195119): all k decisions of a block run on the k x k
-# submatrix G[I, I] of the block-base G through an incrementally bordered
-# Woodbury inverse W = M^{-1}, M = D_P^{-1} + (I - G)[P, P] — O(WB k^2)
-# per site, everything resident in (WB, k, k) VMEM tiles.  Per block:
-#
-# - gather: k sublane-dynamic row reads of G and GT into (WB, k, ns)
-#   buffers; GII / GII^T via two (k, ns) x (ns, k) MXU dots against the
-#   block's precomputed one-hot selector P_b;
-# - decide: fori over the k candidates, each a handful of (WB, k(,k))
-#   VPU ops + the bordered growth of W (masked dense writes — rejected
-#   candidates leave W's row/col at exactly zero, so the composite
-#   update's rank is the number of acceptances);
-# - flush: G += G[:, I] W (G[I, :] - I[I, :]) as three batched MXU dots
-#   (and the mirror-image dots for the transpose copy GT).
-
-
-def _batched_submatrix_kernel(k_sub, scal_ref, ga_ref, order_ref, pall_ref,
-                              props_ref, us_ref, fields_in_ref, g_in_ref,
-                              g_ref, fields_ref, acc_ref,
-                              gt_ref, grows_ref, gcols_ref, winv_ref):
-    """Refs:
-      SMEM: scal (1, 8) f32 = [eta0..3, gamma0..3]; order (1, ns) i32
-      VMEM: ga (WB, 2) f32 per-walker [g_coupling, alpha];
-            pall (n_blocks, ns, k) f32 one-hot column selectors
-            (pall[b, j, t] = 1 iff j == order[b k + t]);
-            props (ns, WB) i32, us (ns, WB) f32;
-            fields_in/fields (WB, ns) i32; g_in/g (WB, ns, ns) (aliased)
-      out:  acc (1, WB) f32
-      scratch: gt (WB, ns, ns); grows, gcols (WB, k, ns); winv (WB, k, k)
-    """
-    WB, ns = g_ref.shape[0], g_ref.shape[-1]
-    dtype = g_ref.dtype
-    n_blocks = ns // k_sub
-    g_ref[...] = g_in_ref[...]
-    gt_ref[...] = jnp.swapaxes(g_in_ref[...], -1, -2)
-    fields_ref[...] = fields_in_ref[...]
-
-    g_hs = ga_ref[:, 0:1]                                # (WB, 1)
-    alpha = ga_ref[:, 1:2]                               # (WB, 1)
-    lane_ns = jax.lax.broadcasted_iota(jnp.int32, (1, ns), 1)
-    lane_k = jax.lax.broadcasted_iota(jnp.int32, (1, k_sub), 1)
-    sub_kk = jax.lax.broadcasted_iota(jnp.int32, (k_sub, k_sub), 0)
-    lane_kk = jax.lax.broadcasted_iota(jnp.int32, (k_sub, k_sub), 1)
-    hp = jax.lax.Precision.HIGHEST  # DEFAULT truncates f32 to bf16 on MXU
-
-    def lut(base, s):
-        out = jnp.zeros(s.shape, dtype)
-        for v4 in range(4):
-            out = jnp.where(s == v4, scal_ref[0, base + v4], out)
-        return out
-
-    def gather(b_t, _):
-        t = jax.lax.rem(b_t, jnp.int32(k_sub))
-        i = order_ref[0, b_t]
-        grows_ref[:, pl.ds(t, 1), :] = g_ref[:, pl.ds(i, 1), :]
-        gcols_ref[:, pl.ds(t, 1), :] = gt_ref[:, pl.ds(i, 1), :]
-        return jnp.int32(0)
-
-    def block(b, acc):
-        base = b * k_sub
-        jax.lax.fori_loop(base, base + jnp.int32(k_sub), gather,
-                          jnp.int32(0))
-        P_b = pall_ref[pl.ds(b, 1), :, :].reshape(
-            pall_ref.shape[1], pall_ref.shape[2])        # (ns, k)
-        dn = (((2,), (0,)), ((), ()))                    # contract ns axis
-        GII = jax.lax.dot_general(grows_ref[...], P_b, dn,
-                                  preferred_element_type=dtype,
-                                  precision=hp)          # (WB, k, k)
-        GIIT = jax.lax.dot_general(gcols_ref[...], P_b, dn,
-                                   preferred_element_type=dtype,
-                                   precision=hp)         # (WB, k, k) = GII^T
-        winv_ref[...] = jnp.zeros_like(winv_ref)
-
-        def site(t, carry):
-            acc, mask = carry                            # mask (WB, k)
-            i = order_ref[0, base + t]
-            fields = fields_ref[...]
-            old = jnp.sum(fields * (lane_ns == i), axis=1,
-                          keepdims=True, dtype=jnp.int32)
-            r = props_ref[pl.ds(base + t, 1), :].reshape(WB, 1)
-            new = r + (r >= old).astype(r.dtype)
-            u = us_ref[pl.ds(base + t, 1), :].reshape(WB, 1)
-
-            d_eta = lut(0, new) - lut(0, old)
-            gammaR = lut(4, new) / lut(4, old)
-            bosonR = jnp.exp(alpha * g_hs * d_eta)
-            delta = jnp.exp(g_hs * d_eta) - 1.0          # (WB, 1)
-
-            # row t of GII/GIIT as a masked reduction: Mosaic has no
-            # dynamic_slice on VMEM *values*, only pl.ds on refs — a
-            # (k, k) VPU select+sum is free at k <= 32
-            row_t = jnp.where(sub_kk == t, jnp.asarray(1.0, dtype),
-                              jnp.asarray(0.0, dtype))   # (k, k), row t ones
-            GII_t = jnp.sum(GII * row_t[None], axis=1)   # (WB, k) = GII[:,t,:]
-            GIIT_t = jnp.sum(GIIT * row_t[None], axis=1)
-            brow = -GII_t * mask                         # (WB, k) = -G[t,P]
-            crow = -GIIT_t * mask                        # (WB, k) = -G[P,t]
-            W = winv_ref[...]                            # (WB, k, k)
-            Wc = jnp.sum(W * crow[:, None, :], axis=2)   # (WB, k)
-            bW = jnp.sum(W * brow[:, :, None], axis=1)   # (WB, k)
-            bWc = jnp.sum(brow * Wc, axis=1, keepdims=True)
-            onehot_t = jnp.where(lane_k == t, jnp.asarray(1.0, dtype),
-                                 jnp.asarray(0.0, dtype))
-            G_tt = jnp.sum(GII_t * onehot_t, axis=1, keepdims=True)
-            r_flv = 1.0 + delta * (1.0 - G_tt) - delta * bWc
-            R = gammaR * bosonR * r_flv * r_flv          # det_power = 2
-            accept = u < jnp.minimum(jnp.asarray(1.0, dtype), jnp.abs(R))
-            inv_s = jnp.where(accept, delta / r_flv,
-                              jnp.zeros_like(delta))     # (WB, 1)
-
-            # bordered growth (all no-ops when inv_s == 0: row/col t of W
-            # and the Wc/bW supports are zero until t is accepted)
-            W = W + inv_s[:, :, None] * Wc[:, :, None] * bW[:, None, :]
-            row_t = -inv_s * bW                          # (WB, k)
-            col_t = -inv_s * Wc
-            W = jnp.where((sub_kk == t)[None], row_t[:, None, :]
-                          * jnp.ones((1, k_sub, 1), dtype), W)
-            W = jnp.where((lane_kk == t)[None], col_t[:, :, None]
-                          * jnp.ones((1, 1, k_sub), dtype), W)
-            # a (WB,1,1) -> (WB,k,k) expansion needs a both-sublanes-
-            # and-lanes vector.broadcast, which Mosaic rejects at small
-            # walker batches (WB=1, stretch W=1 — artifacts/r3c4).
-            # Staged *ones((1,k,1))*ones((1,1,k)) does NOT survive:
-            # Mosaic's canonicalizer folds the mul-by-one splats and
-            # recreates the illegal broadcast (artifacts/r3c5).  An
-            # outer product of the DATA-DEPENDENT one-hot (onehot_t)
-            # cannot be folded, and each operand broadcasts along a
-            # single axis; its value at (t,t) is exactly inv_s and 0
-            # elsewhere, so it doubles as the masked diagonal itself.
-            diag_t = ((inv_s * onehot_t)[:, :, None]
-                      * onehot_t[:, None, :])
-            W = jnp.where(((sub_kk == t) & (lane_kk == t))[None],
-                          diag_t, W)
-            winv_ref[...] = W
-            mask = jnp.where((lane_k == t) & accept,
-                             jnp.asarray(1.0, dtype), mask)
-            fields_ref[...] = jnp.where((lane_ns == i) & accept,
-                                        new.astype(fields.dtype), fields)
-            return acc + accept.reshape(1, WB), mask
-
-        acc, _ = jax.lax.fori_loop(
-            jnp.int32(0), jnp.int32(k_sub), site,
-            (acc, jnp.zeros((WB, k_sub), dtype)))
-
-        # composite flush: M = W (G[I,:] - I[I,:]); G += G[:,I] M
-        V = grows_ref[...] - jnp.swapaxes(P_b, 0, 1)[None]   # (WB, k, ns)
-        dn_kk = (((2,), (1,)), ((0,), (0,)))             # (WB,k,k)x(WB,k,ns)
-        M = jax.lax.dot_general(winv_ref[...], V, dn_kk,
-                                preferred_element_type=dtype,
-                                precision=hp)            # (WB, k, ns)
-        dn_t = (((1,), (1,)), ((0,), (0,)))              # contract k axis
-        g_ref[...] += jax.lax.dot_general(
-            gcols_ref[...], M, dn_t, preferred_element_type=dtype,
-            precision=hp)
-        gt_ref[...] += jax.lax.dot_general(
-            M, gcols_ref[...], dn_t, preferred_element_type=dtype,
-            precision=hp)
-        return acc
-
-    acc = jax.lax.fori_loop(jnp.int32(0), jnp.int32(n_blocks), block,
-                            jnp.zeros((1, WB), dtype))
-    acc_ref[...] = acc / ns
-
-
-@functools.partial(jax.jit, static_argnames=("k_sub", "interpret"))
-def _metropolis_batched_sub_impl(g_vec: jax.Array, alpha_vec: jax.Array,
-                                 keys: jax.Array, G: jax.Array,
-                                 fields: jax.Array, *, k_sub: int = 32,
-                                 interpret: bool = False):
-    """Batched submatrix site update over a flat walker axis — same stream
-    contract as _metropolis_batched_impl (shared order from keys[0],
-    per-walker proposals/uniforms), same Markov chain, O(k^2) sequential
-    work per site."""
-    from dqmc_tpu import hsfield
-    from dqmc_tpu.engine.sweep import draw_slice_randoms
-
-    W, nfl, ns, _ = G.shape
-    assert nfl == 1
-    dtype = G.dtype
-    if ns % k_sub:
-        k_sub = next(k for k in (16, 8, 4, 2, 1) if ns % k == 0)
-    n_blocks = ns // k_sub
-
-    order, _, _ = draw_slice_randoms(keys[0], ns, dtype)
-    _, props, us = jax.vmap(
-        lambda k: draw_slice_randoms(k, ns, dtype))(keys)
-    props_t = props.astype(jnp.int32).T          # (ns, W)
-    us_t = us.T                                  # (ns, W)
-    # per-block one-hot column selectors: pall[b, j, t] = [j == I_b[t]]
-    pall = jax.nn.one_hot(order.reshape(n_blocks, k_sub), ns,
-                          dtype=dtype).transpose(0, 2, 1)  # (nb, ns, k)
-
-    scal = jnp.concatenate([
-        jnp.asarray(hsfield.ETA, dtype),
-        jnp.asarray(hsfield.GAMMA, dtype),
-    ]).reshape(1, 8)
-    ga = jnp.stack([g_vec.astype(dtype), alpha_vec.astype(dtype)], axis=1)
-
-    WB = _pick_block(W, ns, k_sub, jnp.dtype(dtype).itemsize)
-    kern = functools.partial(_batched_submatrix_kernel, k_sub)
-
-    def call_block(ga_b, props_b, us_b, fields_b, G_b):
-        return pl.pallas_call(
-            kern,
-            out_shape=(
-                jax.ShapeDtypeStruct((WB, ns, ns), dtype),
-                jax.ShapeDtypeStruct((WB, ns), jnp.int32),
-                jax.ShapeDtypeStruct((1, WB), dtype),
-            ),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),   # scal
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # ga
-                pl.BlockSpec(memory_space=pltpu.SMEM),   # order
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # pall
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # props
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # us
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # fields in
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # G in
-            ],
-            out_specs=(
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((WB, ns, ns), dtype),       # GT
-                pltpu.VMEM((WB, k_sub, ns), dtype),    # Grows
-                pltpu.VMEM((WB, k_sub, ns), dtype),    # Gcols
-                pltpu.VMEM((WB, k_sub, k_sub), dtype), # Winv
-            ],
-            input_output_aliases={7: 0},
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=100 * 2**20),
-            interpret=interpret,
-        )(scal, ga_b, order.astype(jnp.int32).reshape(1, ns), pall, props_b,
-          us_b, fields_b, G_b)
-
-    n_wblocks = W // WB
-    if n_wblocks == 1:
-        G_new, fields_new, acc = call_block(
-            ga, props_t, us_t, fields.astype(jnp.int32),
-            G.reshape(W, ns, ns))
-    else:
-        G_new, fields_new, acc = jax.vmap(call_block)(
-            ga.reshape(n_wblocks, WB, 2),
-            props_t.T.reshape(n_wblocks, WB, ns).transpose(0, 2, 1),
-            us_t.T.reshape(n_wblocks, WB, ns).transpose(0, 2, 1),
-            fields.astype(jnp.int32).reshape(n_wblocks, WB, ns),
-            G.reshape(n_wblocks, WB, ns, ns))
-
-    return (G_new.reshape(W, 1, ns, ns), fields_new.reshape(W, ns),
-            acc.reshape(W))
-
-
-def metropolis_slice_update_submatrix(model, keys: jax.Array, G: jax.Array,
-                                      fields: jax.Array, *, k_sub: int = 32,
-                                      interpret: bool = False):
-    """Walker-batched submatrix site update for a single model."""
-    W = G.shape[0]
-    g_vec = jnp.broadcast_to(model.g, (W,))
-    alpha_vec = jnp.broadcast_to(model.alpha, (W,))
-    return _metropolis_batched_sub_impl(g_vec, alpha_vec, keys, G, fields,
-                                        k_sub=k_sub, interpret=interpret)
-
-
-# ----------------------------------------------------------------------
-# vmap-aware entry points
+# vmap-aware entry point
 # ----------------------------------------------------------------------
 #
-# Batching stack: pallas_site_update (per walker) -> first vmap dispatches
-# to _site_update_batched (flat batch, per-walker scalars) -> every FURTHER
-# vmap (replica axes, nested walker axes) flattens into the same flat batch
-# via _site_update_batched's own custom_vmap rule.  Parallel-tempering
-# replica batches therefore run as ONE (R*W)-wide kernel with per-replica
-# coupling columns instead of a sequential per-replica loop.
+# site_update_fn(...)(model, key, G, fields_l) is a per-walker site update;
+# the first vmap over it dispatches to the flat batched kernel with
+# per-walker coupling scalars, and every further vmap (replica axes,
+# nested walker axes) flattens into the same batch, so a tempering
+# ladder's replicas x walkers run as ONE launch.
 
 
-@jax.custom_batching.custom_vmap
-def _site_update_batched(g, alpha, keys, G, fields):
-    interpret = jax.default_backend() == "cpu"
-    return _metropolis_batched_impl(g, alpha, keys, G, fields,
-                                    interpret=interpret)
-
-
-@_site_update_batched.def_vmap
-def _site_update_batched_vmap(axis_size, in_batched, g, alpha, keys, G,
-                              fields):
-    B = axis_size
-
-    def ensure(x, b):
-        return x if b else jnp.broadcast_to(
-            x[None], (B,) + tuple(jnp.shape(x)))
-
-    g = ensure(g, in_batched[0])
-    alpha = ensure(alpha, in_batched[1])
-    keys = ensure(keys, in_batched[2])
-    G = ensure(G, in_batched[3])
-    fields = ensure(fields, in_batched[4])
-    W = G.shape[1]
-    Gn, fn, an = _site_update_batched(
-        g.reshape(B * W), alpha.reshape(B * W),
-        keys.reshape((B * W,) + keys.shape[2:]),
-        G.reshape((B * W,) + G.shape[2:]),
-        fields.reshape((B * W,) + fields.shape[2:]))
-    out = (Gn.reshape(G.shape), fn.reshape(fields.shape), an.reshape(B, W))
-    return out, (True, True, True)
-
-
-@jax.custom_batching.custom_vmap
-def pallas_site_update(model, key, G, fields_l):
-    """Site update that picks the right Pallas kernel for its batching:
-    called per-walker it runs the single-walker kernel; under `vmap` over
-    walker and/or replica axes it dispatches to the flat batched
-    delayed-update kernel (shared visit order per device, per-walker
-    proposals/uniforms, per-replica coupling scalars)."""
-    interpret = jax.default_backend() == "cpu"
-    return metropolis_slice_update(model, key, G, fields_l,
-                                   interpret=interpret)
-
-
-@pallas_site_update.def_vmap
-def _pallas_site_update_vmap(axis_size, in_batched, model, key, G, fields_l):
-    W = axis_size
-    mb = in_batched[0]
-
-    def ensure(x, b):
-        return x if b else jnp.broadcast_to(
-            x[None], (W,) + tuple(jnp.shape(x)))
-
-    # only the coupling scalars of the model enter the site update; expK
-    # and friends belong to propagation
-    g = model.g if mb.g else jnp.broadcast_to(model.g, (W,))
-    alpha = model.alpha if mb.alpha else jnp.broadcast_to(model.alpha, (W,))
-    key = ensure(key, in_batched[1])
-    G = ensure(G, in_batched[2])
-    fields_l = ensure(fields_l, in_batched[3])
-    out = _site_update_batched(g, alpha, key, G, fields_l)
-    return out, (True, True, True)
-
-
-@jax.custom_batching.custom_vmap
-def _site_update_batched_2f(g, alpha, keys, G, fields):
-    interpret = jax.default_backend() == "cpu"
-    return _metropolis_batched_2f_impl(g, alpha, keys, G, fields,
-                                       interpret=interpret)
-
-
-@_site_update_batched_2f.def_vmap
-def _site_update_batched_2f_vmap(axis_size, in_batched, g, alpha, keys, G,
-                                 fields):
-    B = axis_size
-
-    def ensure(x, b):
-        return x if b else jnp.broadcast_to(
-            x[None], (B,) + tuple(jnp.shape(x)))
-
-    g = ensure(g, in_batched[0])
-    alpha = ensure(alpha, in_batched[1])
-    keys = ensure(keys, in_batched[2])
-    G = ensure(G, in_batched[3])
-    fields = ensure(fields, in_batched[4])
-    W = G.shape[1]
-    Gn, fn, an, sn = _site_update_batched_2f(
-        g.reshape(B * W), alpha.reshape(B * W),
-        keys.reshape((B * W,) + keys.shape[2:]),
-        G.reshape((B * W,) + G.shape[2:]),
-        fields.reshape((B * W,) + fields.shape[2:]))
-    out = (Gn.reshape(G.shape), fn.reshape(fields.shape),
-           an.reshape(B, W), sn.reshape(B, W))
-    return out, (True, True, True, True)
-
-
-@jax.custom_batching.custom_vmap
-def pallas_site_update_2f(model, key, G, fields_l):
-    """Two-flavor analogue of pallas_site_update (repulsive spin-channel
-    models: opposite couplings, det_power=1, sign tracking).  Returns
-    (G, fields_l, acc, sgn) — multiply sgn into the walker's running
-    sign.  Under vmap, batches flatten into one (R*W)-wide kernel exactly
-    like the 1-flavor path."""
-    G1, f1, a1, s1 = _site_update_batched_2f(
-        model.g.reshape(1), model.alpha.reshape(1), key[None], G[None],
-        fields_l[None])
-    return G1[0], f1[0], a1[0], s1[0]
-
-
-@pallas_site_update_2f.def_vmap
-def _pallas_site_update_2f_vmap(axis_size, in_batched, model, key, G,
-                                fields_l):
-    W = axis_size
-    mb = in_batched[0]
-
-    def ensure(x, b):
-        return x if b else jnp.broadcast_to(
-            x[None], (W,) + tuple(jnp.shape(x)))
-
-    g = model.g if mb.g else jnp.broadcast_to(model.g, (W,))
-    alpha = model.alpha if mb.alpha else jnp.broadcast_to(model.alpha, (W,))
-    key = ensure(key, in_batched[1])
-    G = ensure(G, in_batched[2])
-    fields_l = ensure(fields_l, in_batched[3])
-    out = _site_update_batched_2f(g, alpha, key, G, fields_l)
-    return out, (True, True, True, True)
+def _ensure(x, batched, B):
+    return x if batched else jnp.broadcast_to(x[None], (B,) + jnp.shape(x))
 
 
 @functools.lru_cache(maxsize=None)
-def _site_update_batched_sub_fn(k_sub: int):
-    """vmap-flattening batched entry for the submatrix kernel, one cached
-    custom_vmap closure per static block rank."""
+def site_update_fn(k_delay: int = 32, interpret: bool = False):
+    """The per-walker, vmap-flattening site update (see above)."""
 
     @jax.custom_batching.custom_vmap
-    def f(g, alpha, keys, G, fields):
-        interpret = jax.default_backend() == "cpu"
-        return _metropolis_batched_sub_impl(g, alpha, keys, G, fields,
-                                            k_sub=k_sub,
-                                            interpret=interpret)
+    def flat(g, alpha, keys, G, fields):
+        return site_update_batched(g, alpha, keys, G, fields,
+                                   k_delay=k_delay, interpret=interpret)
 
-    @f.def_vmap
-    def _vmap(axis_size, in_batched, g, alpha, keys, G, fields):
+    @flat.def_vmap
+    def _flat_vmap(axis_size, in_batched, g, alpha, keys, G, fields):
         B = axis_size
-
-        def ensure(x, b):
-            return x if b else jnp.broadcast_to(
-                x[None], (B,) + tuple(jnp.shape(x)))
-
-        g = ensure(g, in_batched[0])
-        alpha = ensure(alpha, in_batched[1])
-        keys = ensure(keys, in_batched[2])
-        G = ensure(G, in_batched[3])
-        fields = ensure(fields, in_batched[4])
+        g, alpha, keys, G, fields = (
+            _ensure(x, b, B) for x, b in zip((g, alpha, keys, G, fields),
+                                             in_batched))
         W = G.shape[1]
-        Gn, fn, an = f(
-            g.reshape(B * W), alpha.reshape(B * W),
-            keys.reshape((B * W,) + keys.shape[2:]),
-            G.reshape((B * W,) + G.shape[2:]),
-            fields.reshape((B * W,) + fields.shape[2:]))
+        Gn, fn, an = flat(g.reshape(B * W), alpha.reshape(B * W),
+                          keys.reshape((B * W,) + keys.shape[2:]),
+                          G.reshape((B * W,) + G.shape[2:]),
+                          fields.reshape((B * W,) + fields.shape[2:]))
         out = (Gn.reshape(G.shape), fn.reshape(fields.shape),
                an.reshape(B, W))
         return out, (True, True, True)
 
-    return f
-
-
-def _make_pallas_site_update_sub(k_sub: int):
     @jax.custom_batching.custom_vmap
-    def pallas_site_update_sub(model, key, G, fields_l):
-        G1, f1, a1 = _site_update_batched_sub_fn(k_sub)(
-            model.g.reshape(1), model.alpha.reshape(1), key[None], G[None],
-            fields_l[None])
+    def per_walker(model, key, G, fields_l):
+        G1, f1, a1 = flat(model.g.reshape(1), model.alpha.reshape(1),
+                          key[None], G[None], fields_l[None])
         return G1[0], f1[0], a1[0]
 
-    @pallas_site_update_sub.def_vmap
-    def _vmap(axis_size, in_batched, model, key, G, fields_l):
+    @per_walker.def_vmap
+    def _per_walker_vmap(axis_size, in_batched, model, key, G, fields_l):
         W = axis_size
         mb = in_batched[0]
-
-        def ensure(x, b):
-            return x if b else jnp.broadcast_to(
-                x[None], (W,) + tuple(jnp.shape(x)))
-
+        # only the coupling scalars of the model enter the site update
         g = model.g if mb.g else jnp.broadcast_to(model.g, (W,))
-        alpha = (model.alpha if mb.alpha
-                 else jnp.broadcast_to(model.alpha, (W,)))
-        key = ensure(key, in_batched[1])
-        G = ensure(G, in_batched[2])
-        fields_l = ensure(fields_l, in_batched[3])
-        out = _site_update_batched_sub_fn(k_sub)(g, alpha, key, G, fields_l)
+        alpha = model.alpha if mb.alpha else jnp.broadcast_to(model.alpha,
+                                                              (W,))
+        out = flat(g, alpha, _ensure(key, in_batched[1], W),
+                   _ensure(G, in_batched[2], W),
+                   _ensure(fields_l, in_batched[3], W))
         return out, (True, True, True)
 
-    return pallas_site_update_sub
-
-
-@functools.lru_cache(maxsize=None)
-def pallas_site_update_submatrix(k_sub: int):
-    """Per-walker submatrix site update (vmap-aware like
-    pallas_site_update); call as pallas_site_update_submatrix(k)(model,
-    key, G, fields_l).  Single-flavor det_power=2 models."""
-    return _make_pallas_site_update_sub(k_sub)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def metropolis_slice_update(model, key: jax.Array, G: jax.Array,
-                            fields_l: jax.Array, *, interpret: bool = False):
-    """Pallas-accelerated drop-in for engine.sweep.local_update_slice.
-
-    G: (1, ns, ns) single-flavor Green's function; fields_l: (ns,).
-    Returns (G, fields_l, acceptance_fraction) with the identical Markov
-    chain (same key -> same stream -> same decisions).
-    """
-    from dqmc_tpu import hsfield
-
-    from dqmc_tpu.engine.sweep import draw_slice_randoms
-
-    ns = model.n_sites
-    dtype = G.dtype
-    order, props, us = draw_slice_randoms(key, ns, dtype)
-    order = order.astype(jnp.int32)
-    props = props.astype(jnp.int32)
-
-    table = jnp.asarray(hsfield.PROPOSAL, jnp.int32)
-    scal = jnp.concatenate([
-        model.g.astype(dtype).reshape(1),
-        model.alpha.astype(dtype).reshape(1),
-        jnp.asarray(hsfield.ETA, dtype),
-        jnp.asarray(hsfield.GAMMA, dtype),
-    ]).reshape(1, 10)
-
-    smem = lambda: pl.BlockSpec(memory_space=pltpu.SMEM)
-    vmem = lambda: pl.BlockSpec(memory_space=pltpu.VMEM)
-    G_new, fields_new, acc = pl.pallas_call(
-        _update_kernel,
-        out_shape=(
-            jax.ShapeDtypeStruct((1, ns, ns), dtype),
-            jax.ShapeDtypeStruct((1, ns), jnp.int32),
-            jax.ShapeDtypeStruct((1, 1), dtype),
-        ),
-        in_specs=[smem(), smem(), smem(), smem(), smem(), smem(), vmem()],
-        out_specs=(vmem(), smem(), smem()),
-        input_output_aliases={6: 0},
-        interpret=interpret,
-    )(scal, table, fields_l.reshape(1, ns).astype(jnp.int32),
-      order.reshape(1, ns), props.reshape(1, ns), us.reshape(1, ns), G)
-
-    return G_new, fields_new[0], acc[0, 0]
+    return per_walker

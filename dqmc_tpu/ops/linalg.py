@@ -1,17 +1,17 @@
 """Numerically stable LDR (UDT) matrix algebra for DQMC propagator products.
 
-This is the TPU-native equivalent of the reference's ``stablelinalg``
+This is the JAX equivalent of the reference's ``stablelinalg``
 (source/stablelinalg.cpp:1-191), which holds the entire numerical stability
 of the method.  A propagator product over many imaginary-time slices has
 singular values spanning ~exp(+-beta*W); representing it as ``F = L @
 diag(d) @ R`` with orthogonal L, non-negative scales d, and a
 well-conditioned R keeps every intermediate matrix O(1)-conditioned.
 
-Design notes (TPU-first, not a translation):
+Design notes (a re-design, not a translation):
 
 - The reference uses LAPACK's greedy column-pivoted QR (``geqp3`` via
   ``arma::qr(...,"vector")``, stablelinalg.cpp:40-41).  Greedy pivoting is
-  inherently sequential and maps terribly onto the MXU.  We instead pre-sort
+  inherently sequential and maps badly onto batched hardware.  We pre-sort
   columns by norm (one ``argsort``) and run XLA's blocked Householder QR.
   For the matrices that arise here — each re-QR input is
   ``diag(d_sorted) @ (well-conditioned) @ diag(d2)`` with d already sorted
@@ -19,7 +19,7 @@ Design notes (TPU-first, not a translation):
   and the d-scale separation it produces is validated against f64 brute
   force in tests/test_linalg.py down to <1e-10.
 - All ops are pure functions on an ``LDR`` NamedTuple (a pytree), so they
-  vmap over walker/flavor axes and batch the QRs/GEMMs onto the MXU.
+  vmap over walker/flavor axes and batch the QRs/GEMMs.
 - The three stabilized inverses mirror the reference's D_large/D_small
   splitting (stablelinalg.cpp:94-190) exactly:
       d = d_small * d_large,  d_large = max(d, 1),  d_small = min(d, 1)
@@ -82,81 +82,24 @@ def _log_clamp(dtype) -> float:
     return 60.0 if dtype == jnp.float32 else 600.0
 
 
-def _shifted_cholqr2(A: jax.Array):
-    """(Q, R) orthogonalization of a column-equilibrated matrix by two
-    rounds of shifted CholeskyQR — MXU matmuls plus two small batched
-    Cholesky factorizations.
-
-    TPU rationale: XLA's Householder QR is a sequential-panel custom call
-    (~1.8 ms at (16,256,256) f32) while matmuls are ~0.02 ms and Cholesky
-    ~0.6 ms; CholeskyQR2 moves almost all the work onto the MXU.  The
-    shift in the first round (Fukaya et al.'s shifted CholeskyQR)
-    guarantees the Cholesky succeeds for cond(A) up to ~1/sqrt(eps); the
-    second round restores orthogonality.  A = Q @ R holds to rounding
-    regardless of the shift; R is upper-triangular with positive diagonal.
-
-    NOT used by the f32 engine default: the propagator-stack fold inputs
-    were measured at cond up to ~1e6 even after column equilibration
-    (beta=8), where a gram-based factorization cannot resolve the d-ladder
-    (NaNs / O(1) G errors observed) — see _F32_ORTH below."""
-    n = A.shape[-1]
-    eye = jnp.eye(n, dtype=A.dtype)
-    shift = float(100 * n) * float(jnp.finfo(A.dtype).eps)
-
-    def one(X, shift_scale):
-        G = jnp.matmul(jnp.swapaxes(X, -1, -2), X)
-        if shift_scale:
-            dmax = jnp.max(jnp.diagonal(G, axis1=-2, axis2=-1), axis=-1)
-            G = G + (shift_scale * dmax)[..., None, None] * eye
-        C = jnp.linalg.cholesky(G)
-        Q = jax.lax.linalg.triangular_solve(
-            C, X, left_side=False, lower=True, transpose_a=True)
-        return Q, C
-
-    Q1, C1 = one(A, shift)
-    Q2, C2 = one(Q1, 0.0)
-    # A = Q1 C1^T and Q1 = Q2 C2^T  =>  A = Q2 (C1 C2)^T
-    return Q2, jnp.swapaxes(jnp.matmul(C1, C2), -1, -2)
-
-
-# Orthogonalization backend for the f32 engine path:
-# - "auto" (default): the Pallas blocked-CGS2 kernel (ops/qr_kernel.py) on
-#   TPU — columnwise stable like Householder, ~3x faster than the geqrf
-#   custom call, chain accuracy validated equal (tests/test_qr_kernel.py);
-#   XLA Householder elsewhere (the kernel would run interpreted on CPU).
-# - "cgs2" / "householder": force one of the above.
-# - "cholqr2": the shifted-CholeskyQR2 experiment — UNSAFE for the
-#   propagator stack: fold inputs carry cond up to ~1e6 even after column
-#   equilibration (the previous L*d structure mixes scales into the rows),
-#   and a gram-based factorization cannot resolve singular values below
-#   sqrt(eps_f32)*sigma_max — measured NaNs/O(1) G errors at beta=8.  Kept
-#   as an escape hatch / documentation of the measurement.
-# f64 always uses Householder QR (the parity-grade path).
-_F32_ORTH = "auto"
-
-
-def set_f32_orthogonalization(method: str) -> None:
-    global _F32_ORTH
-    if method not in ("auto", "cgs2", "cholqr2", "householder"):
-        raise ValueError(f"unknown orthogonalization method: {method}")
-    _F32_ORTH = method
-
-
-def _f32_mode() -> str:
-    if _F32_ORTH == "auto":
-        return "cgs2" if jax.default_backend() == "tpu" else "householder"
-    return _F32_ORTH
-
-
 def _qr(A: jax.Array):
-    if A.dtype == jnp.float32:
-        mode = _f32_mode()
-        if mode == "cgs2":
-            from dqmc_tpu.ops.qr_kernel import cgs2_qr
-            return cgs2_qr(A)
-        if mode == "cholqr2":
-            return _shifted_cholqr2(A)
+    """Householder QR (cuSOLVER geqrf on the GPU, LAPACK on the CPU).
+
+    Gram-based orthogonalization (CholeskyQR2) was measured unsafe here:
+    fold inputs carry cond ~1e6 even after column equilibration at beta=8,
+    and a gram-based factorization cannot resolve singular values below
+    sqrt(eps_f32) * sigma_max (NaNs / O(1) G errors; NOTES.md)."""
     return jnp.linalg.qr(A)
+
+
+def unpermute_columns(X: jax.Array, perm: jax.Array) -> jax.Array:
+    """Undo a column permutation: column j of X moves to perm[j] (i.e.
+    X[..., argsort(perm)]), as a scatter rather than a second argsort —
+    XLA:GPU's permutation-sort simplifier rejects an argsort of a
+    permutation under x64 (s32 vs s64 accumulator in the hlo verifier).
+    perm: (..., n) with leading dims matching X's, or (n,)."""
+    idx = jnp.broadcast_to(perm[..., None, :], X.shape)
+    return jnp.put_along_axis(X, idx, X, axis=-1, inplace=False)
 
 
 def to_ldr(M: jax.Array) -> LDR:
@@ -197,8 +140,7 @@ def to_ldr(M: jax.Array) -> LDR:
     ratio = jnp.exp(jnp.minimum(
         log_sp[..., None, :] - log_sp[..., :, None], 0.0))
     Ru = (Rn / diag_safe[..., :, None]) * ratio
-    inv_perm = jnp.argsort(perm)
-    R_final = jnp.take(Ru, inv_perm, axis=-1)
+    R_final = unpermute_columns(Ru, perm)
     return LDR(Q, d, R_final)
 
 
@@ -291,16 +233,8 @@ def inv_one_plus_ldr_mul_ldr(F1: LDR, F2: LDR) -> Tuple[jax.Array, jax.Array]:
 def _qr_solve_logdet(A: jax.Array, B: jax.Array):
     """(A^{-1} B, log|det A|) for the well-conditioned M systems.
 
-    f64: via QR + TriangularSolve — XLA:TPU implements those for f64
-    (emulated) but not LuDecomposition, so the f64 path stays LU-free and
-    runs on TPU.
-    f32 on TPU (auto/cgs2 mode): via the Pallas CGS2 QR —
-    X = R^-1 (Q^T B) with a (cheap, matmul-rich) XLA triangular solve and
-    log|det A| = sum log diag R; replaces BOTH the getrf custom call and
-    slogdet's second factorization.  QR-solve without pivoting is
-    norm-wise backward stable, so accuracy tracks partial-pivoted LU
-    (validated at cond(M) ~ 1e7, beta=8 — see tests/test_qr_kernel.py).
-    f32 elsewhere: LU (jnp.linalg.solve / slogdet).  M has O(1) ENTRIES by
+    f64: via QR + TriangularSolve (LU-free, the parity-grade path).
+    f32: LU (jnp.linalg.solve / slogdet).  M has O(1) ENTRIES by
     construction (the D_large/D_small split) but NOT O(1) condition —
     gram/Cholesky-based solvers (normal equations, even with iterative
     refinement) and gram-based log-dets were measured to lose the chain
@@ -312,15 +246,6 @@ def _qr_solve_logdet(A: jax.Array, B: jax.Array):
         Q, R = jnp.linalg.qr(A)
         X = jax.lax.linalg.triangular_solve(
             R, jnp.swapaxes(Q, -1, -2) @ B, left_side=True, lower=False)
-        logabs = jnp.sum(
-            jnp.log(jnp.abs(jnp.diagonal(R, axis1=-2, axis2=-1))), axis=-1)
-        return X, logabs
-    if _f32_mode() == "cgs2":
-        # in-kernel R^{-1}: the solve is two MXU matmuls, no
-        # TriangularSolve custom call (see qr_kernel.cgs2_qr_inv)
-        from dqmc_tpu.ops.qr_kernel import cgs2_qr_inv
-        Q, R, W = cgs2_qr_inv(A)
-        X = W @ (jnp.swapaxes(Q, -1, -2) @ B)
         logabs = jnp.sum(
             jnp.log(jnp.abs(jnp.diagonal(R, axis1=-2, axis2=-1))), axis=-1)
         return X, logabs
@@ -337,7 +262,7 @@ def _qr_solve_logdet(A: jax.Array, B: jax.Array):
 # The reference's formulas (above) feed row-graded matrices diag(d) @ X into
 # QR and solve against R factors — fine in f64, catastrophic in f32 once the
 # d-range exceeds the mantissa (see tests/test_linalg.py::test_f32_accuracy).
-# The TPU-native engine therefore stores suffix propagator products
+# The engine therefore stores suffix propagator products
 # B(beta,tau) as LDRs of their TRANSPOSE:
 #
 #     F2t = (L2, d2, R2)  represents  B2 = F2t_matrix^T = R2^T d2 L2^T.
@@ -438,22 +363,13 @@ def inv_triplet_dag(F1: LDR, F2t: LDR):
     Y = jnp.concatenate([Ytt, Yt0], axis=-1)            # two RHS, one solve
     Y0t = d2s[..., :, None] * F2t.R                     # RHS for M^T
 
-    if M.dtype == jnp.float32 and _f32_mode() == "cgs2":
-        # in-kernel R^{-1} serves both orientations: X = W (Q^T Y) and
-        # M^T x = y => x = Q W^T y — no TriangularSolve custom calls
-        from dqmc_tpu.ops.qr_kernel import cgs2_qr_inv
-        Q, R, W = cgs2_qr_inv(M)
-        QT = jnp.swapaxes(Q, -1, -2)
-        X = W @ (QT @ Y)
-        Xt = Q @ (jnp.swapaxes(W, -1, -2) @ Y0t)
-    else:
-        Q, R = jnp.linalg.qr(M)
-        QT = jnp.swapaxes(Q, -1, -2)
-        X = jax.lax.linalg.triangular_solve(R, QT @ Y, left_side=True,
-                                            lower=False)
-        # M^T x = y  =>  x = Q R^{-T} y (lower-triangular solve with R^T)
-        Xt = Q @ jax.lax.linalg.triangular_solve(
-            jnp.swapaxes(R, -1, -2), Y0t, left_side=True, lower=True)
+    Q, R = jnp.linalg.qr(M)
+    QT = jnp.swapaxes(Q, -1, -2)
+    X = jax.lax.linalg.triangular_solve(R, QT @ Y, left_side=True,
+                                        lower=False)
+    # M^T x = y  =>  x = Q R^{-T} y (lower-triangular solve with R^T)
+    Xt = Q @ jax.lax.linalg.triangular_solve(
+        jnp.swapaxes(R, -1, -2), Y0t, left_side=True, lower=True)
     logabs = jnp.sum(
         jnp.log(jnp.abs(jnp.diagonal(R, axis1=-2, axis2=-1))), axis=-1)
     log_det = (jnp.sum(jnp.log(d1l), axis=-1)

@@ -1,5 +1,5 @@
 """Triple-float32 ("tf32x3") arithmetic: ~72-bit-significand numerics
-from triples of f32 values, built for TPU.
+from triples of f32 values.
 
 Why a third component exists at all: the df32 pair tier bottoms out at
 ~1e-8 on the beta=8 stabilization chain — measured round-2, a pure
@@ -10,19 +10,18 @@ scheme can reach the 1e-10 parity target (BASELINE.md) regardless of
 how accurate its arithmetic is.  A triple carries eps ~2^-70: even
 after the chain's amplification the rebuilt G lands below 1e-12.
 
-Same design as ops/df32.py (see there for the hardware rationale):
+Same design as ops/df32.py (see there for the rationale):
 
 - elementwise: error-free-transformation chains (two_sum / Dekker
-  two_prod on f32 — no VPU FMA), "sloppy" triple-word algorithms in the
+  two_prod on f32, no FMA), "sloppy" triple-word algorithms in the
   sense of Fabiano-Muller-Picot: components may overlap by a few bits,
   costing a few of the 72 bits — validated ~<= 2^-63 worst-case
   elementwise against mpmath in tests/test_tf32.py, far below the
   chain's ~2^-51 requirement;
 - matmul: the identical integer Ozaki digit-plane scheme with 10 planes
   (70 plane bits): per-row/column power-of-two scales, exact
-  int8 x int8 -> int32 MXU digit products, weight-graded triple-word
-  recombination.  55 int8 passes per matmul vs df32's 28 — ~2x a df32
-  matmul, still ~an order faster than XLA's f64 emulation.
+  int8 x int8 -> int32 digit products, weight-graded triple-word
+  recombination.  55 int8 passes per matmul vs df32's 28.
 
 Used by the parity++ measurement-rebuild tier (engine/parity.py with
 nm=tf32): df32 keeps the sampling hot path, tf32 rebuilds the measured
@@ -43,6 +42,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from dqmc_tpu import platform
 from dqmc_tpu.ops.df32 import two_sum, quick_two_sum, two_prod
 
 
@@ -241,7 +241,7 @@ def matmul(a: TF, b: TF, n_planes: int = N_PLANES) -> TF:
     Accelerators route through an inner jit (one trace per signature —
     the parity rebuild builds hundreds of these); CPU stays inline to
     dodge the XLA:CPU LLVM reassociation bug (ops/df_linalg.py doc)."""
-    if jax.default_backend() != "cpu":
+    if platform.jit_multiword():
         return _matmul_jit(a, b, n_planes)
     return _matmul_impl(a, b, n_planes)
 

@@ -1,15 +1,15 @@
-"""Multi-host / multi-chip initialization helpers.
+"""Multi-host / multi-device initialization helpers.
 
 The reference scales across nodes with ``mpirun -np N`` and raw MPI
 (SURVEY.md section 5: MPI_Init/Sendrecv/Reduce over MPI_COMM_WORLD).  The
-TPU-native equivalents:
+JAX equivalents:
 
-- within a pod slice: all chips appear as ``jax.devices()`` of one process
-  group; walkers/replicas shard over a Mesh axis and the only collective
-  (the replica-exchange permutation) rides ICI.
-- across hosts: ``jax.distributed.initialize()`` forms the global runtime
-  (DCN for cross-host collectives), after which the same Mesh code is
-  unchanged — device meshes are topology-agnostic by construction.
+- within a host: all GPUs appear as ``jax.devices()`` of one process;
+  walkers/replicas shard over a 1-D Mesh axis and the only collective
+  (the replica-exchange permutation) rides NVLink, which joins every card
+  to every other, so the mesh follows the algorithm alone.
+- across hosts: ``jax.distributed.initialize()`` forms the global runtime,
+  after which the same Mesh code is unchanged.
 
 Per-walker output files keep the reference's "pool offline" contract: each
 process writes walkers [rank_offset, rank_offset + local_walkers) so the
@@ -31,8 +31,8 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None) -> None:
     """Initialize the multi-host JAX runtime (no-op for single-process).
 
-    On TPU pods with standard orchestration all arguments are discovered
-    automatically; pass them explicitly for manual setups.
+    Pass coordinator_address (host:port), num_processes and process_id
+    explicitly ([distributed] section of parameters.in).
     """
     if num_processes is not None and num_processes > 1 or coordinator_address:
         jax.distributed.initialize(coordinator_address=coordinator_address,
@@ -41,7 +41,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 
 
 def global_walker_mesh(axis: str = "walkers") -> Mesh:
-    """1-D mesh over every addressable chip (all hosts)."""
+    """1-D mesh over every device of every host."""
     return Mesh(np.array(jax.devices()), (axis,))
 
 

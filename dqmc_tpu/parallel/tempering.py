@@ -9,9 +9,9 @@ device-mesh world:
 - The even/odd partner pairing alternates with the attempt counter
   (update.cpp:34-45).
 - Field configurations travel to partners as one permutation of the
-  (R, nt, ns) int array.  On a single chip that's a gather; with the
+  (R, nt, ns) int array.  On a single device that's a gather; with the
   replica axis sharded over a mesh, XLA lowers the same permutation to a
-  `collective-permute` over ICI — no hand-written point-to-point code.
+  `collective-permute` — no hand-written point-to-point code.
 - The reference's three MPI_Sendrecv round-trips plus an explicit accept
   message (update.cpp:64-105) collapse into: one field permutation, one
   scalar-action permutation, and a *shared-randomness* Metropolis coin —
@@ -82,7 +82,7 @@ def replica_exchange(models, cfg: EngineConfig, states: WalkerState,
     (SURVEY.md suggested the beta-swap as "cheaper"): the O(nt ns^3/n_stab)
     cross-action rebuild is required under EITHER convention (S_{beta_r} of
     the partner's fields has no incremental relation to anything cached),
-    so the only difference is what crosses the ICI link — an O(nt ns) int
+    so the only difference is what crosses the device link — an O(nt ns) int
     field block here versus, for the beta-swap, re-sorting each O(ns^2)
     Green's function (plus stack) back to fixed-beta measurement streams
     before every measurement, because analysis pools per-beta files
@@ -212,7 +212,8 @@ def run_parallel_tempering(params, *, out_dir: str = "results",
     from dqmc_tpu.measure import MeasurementManager
     from dqmc_tpu.parallel.walkers import stack_models
     from dqmc_tpu.run import (RunSummary, _rank0_log, _resolve_dtype,
-                              global_stats, make_engine_config)
+                              global_stats, make_engine_config,
+                              walker_devices)
 
     log = _rank0_log(verbose)
     dtype, df_mode = _resolve_dtype(params)
@@ -267,7 +268,8 @@ def run_parallel_tempering(params, *, out_dir: str = "results",
         model_cls.from_params(params, lat, beta=b, dtype=dtype)
         for b in betas])
     signed = models.det_power == 1    # sign-prone family: weight by sign
-    cfg = make_engine_config(params, models)
+    ndev = walker_devices(params, R)
+    cfg = make_engine_config(params, models, sharded=ndev > 1)
     auxs = None
     if df_mode:
         from dqmc_tpu.engine.df_sweep import df_aux_build
@@ -315,14 +317,11 @@ def run_parallel_tempering(params, *, out_dir: str = "results",
         accepted = float(meta.get("accepted", 0.0))
         log(f"Resumed PT run from {ckpt_path} at bin {start_bin}")
 
-    # multi-chip: one (or more) replicas per device; the exchange
-    # permutation inside replica_exchange lowers to collective-permute over
-    # ICI when the replica axis is sharded (the reference's MPI_Sendrecv,
+    # multi-device: one (or more) replicas per device; the exchange
+    # permutation inside replica_exchange lowers to a collective-permute
+    # when the replica axis is sharded (the reference's MPI_Sendrecv,
     # update.cpp:64-66)
-    n_devices = params.get_int("walkers", "n_devices", 0)
-    n_avail = len(jax.devices())
-    ndev = n_avail if n_devices == 0 else min(n_devices, n_avail)
-    if ndev > 1 and R % ndev == 0:
+    if ndev > 1:
         from dqmc_tpu.parallel.walkers import make_mesh, shard_walkers
         mesh = make_mesh(ndev, axis="replicas")
         states = shard_walkers(states, mesh, axis="replicas")

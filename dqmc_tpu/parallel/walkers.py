@@ -1,18 +1,19 @@
-"""Walker/replica batching across chips.
+"""Walker/replica batching across devices.
 
 The reference's only throughput parallelism is embarrassingly-parallel
 Markov chains, one per MPI rank (SURVEY.md section 2: seed ``time+rank``,
-per-rank output files, zero inter-rank communication).  The TPU-native
+per-rank output files, zero inter-rank communication).  The JAX
 equivalent is layered:
 
-- within a chip: a leading walker axis handled by ``vmap`` (batched ns x ns
-  GEMMs fill the MXU far better than one chain can);
-- across chips: the same walker axis sharded over a ``jax.sharding.Mesh``.
-  Independent chains need no collectives, so XLA partitions the jitted
-  sweep with zero communication; parallel tempering's partner exchange is
-  the only op that turns into an ICI collective (see tempering.py).
+- within a device: a leading walker axis handled by ``vmap`` (batched
+  ns x ns GEMMs keep the device far busier than one chain can);
+- across devices: the same walker axis sharded over a
+  ``jax.sharding.Mesh``.  Independent chains need no collectives, so XLA
+  partitions the jitted sweep with zero communication; parallel
+  tempering's partner exchange is the only op that turns into a
+  collective (see tempering.py).
 
-Because the sweep engine is a pure function of pytrees, "multi-chip" is
+Because the sweep engine is a pure function of pytrees, "multi-device" is
 nothing but placing the walker axis on a mesh: no code in the engine
 changes.
 """

@@ -4,7 +4,7 @@ This is the test oracle: a straightforward float64 implementation using
 scipy's true greedy column-pivoted QR (LAPACK geqp3 — the same routine the
 reference binary calls through Armadillo/MKL).  The production JAX code in
 dqmc_tpu.ops.linalg replaces greedy pivoting with a column-norm pre-sort to
-stay MXU-friendly; these goldens quantify that the substitution costs
+stay batch-friendly; these goldens quantify that the substitution costs
 nothing at f64.
 
 Written clean-room from the UDT stabilization math; see

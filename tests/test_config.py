@@ -68,7 +68,10 @@ def test_int_accepts_float_literal():
 
 
 def test_reference_example_file():
-    p = Parameters("/root/reference/examples/parameters.in")
+    """examples/basic is the in-repo copy of the reference's own example."""
+    import os
+    p = Parameters(os.path.join(os.path.dirname(__file__), os.pardir,
+                                "examples", "basic", "parameters.in"))
     assert p.get_int("Lattice", "L1") == 6
     assert p.get_float("simulation", "beta") == 4.0
     assert p.get_int("simulation", "n_stab") == 10

@@ -3,7 +3,7 @@
 Tolerance note: the suite runs XLA:CPU at --xla_backend_optimization_level=0
 (tests/conftest.py), where the jitted df engine carries its true tier
 (~1e-9 at this beta; at default opt level CPU codegen corrupts fused df
-graphs to ~1e-5 — NOTES.md round-4 log).  TPU is bit-stable at any level.
+graphs to ~1e-5 — NOTES.md).
 """
 
 import numpy as np

@@ -1,8 +1,8 @@
-"""Driver-level multi-chip tests on the faked 8-device CPU mesh.
+"""Driver-level multi-device tests on the faked 8-device CPU mesh.
 
 The reference's production mode is `mpirun -np N` data-parallel chains
 (README.md:29-32, main.cpp:20-28): N identical independent simulations, one
-output file per rank, statistics pooled offline.  The TPU-native equivalent
+output file per rank, statistics pooled offline.  The JAX equivalent
 is the walker axis sharded over a jax.sharding.Mesh — these tests assert the
 driver actually does that and that sharding changes NOTHING about the
 output (bit-identical HDF5 bins sharded vs unsharded).

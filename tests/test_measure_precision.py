@@ -11,8 +11,7 @@ manager.make_measured_iter -> h5 output).
 CPU caveat: inside the jitted measured iteration the multiword graphs
 are exposed to the XLA:CPU reassociation hazard (ops/df_linalg.py doc),
 so CPU agreement is asserted at 1e-3; the tier's real (<1e-10) grade is
-pinned eagerly in tests/test_parity.py / test_tf_linalg.py and measured
-on TPU.
+pinned eagerly in tests/test_parity.py / test_tf_linalg.py.
 """
 
 import os

@@ -242,8 +242,8 @@ def test_tf_uneq_2x_stride_fine_dtau_vs_gold():
     (stride*dtau = 0.5), tau-resolved Gt0/G0t under 1e-10 vs 60-digit
     gold at mid-stride taus.  NOTE this certifies the CPU path
     (Householder-seeded refinement); the 2x stride is NOT the shipped
-    default — on chip the CGS2-seeded triplet refinement diverged at
-    this stride (see measurement_uneq_fn's stride note)."""
+    default — a CGS2-seeded triplet refinement diverged at this stride
+    (see measurement_uneq_fn's stride note)."""
     from mpmath import mp
     from dqmc_tpu import hsfield
     from dqmc_tpu.ops import tf32

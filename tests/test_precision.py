@@ -1,6 +1,6 @@
 """Low-precision (f32) regression tests for the transpose-suffix LDR chain.
 
-TPU has no native f64; the engine's f32 viability rests on (a) every QR
+The GPU default samples in f32; the engine's f32 viability rests on (a) every QR
 input being column-graded, (b) overflow-proof log-domain d handling in
 to_ldr, and (c) LU-free well-scaled stabilized inverses.  These tests pin
 the achieved accuracy so regressions in the orientation/scaling logic show
@@ -58,7 +58,7 @@ def test_f32_no_overflow_extreme_beta():
 
 def test_f32_sweep_self_check():
     """Full f32 Monte-Carlo sweeps at beta=8 keep the naive-vs-stabilized
-    deviation bounded (the run-time health signal on TPU)."""
+    deviation bounded (the run-time health signal)."""
     lat = square_lattice(8, 8)
     m = AttractiveHubbard.build(lat, U=4.0, t=1.0, mu=-0.1, beta=8.0, nt=80,
                                 dtype=jnp.float32)

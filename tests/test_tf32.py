@@ -180,7 +180,7 @@ def test_matmul_batched(rng):
 
 
 def test_jit_consistency(rng):
-    """tf ops produce identical triples under jit (TPU/CPU interpret).
+    """tf ops produce identical triples under jit.
 
     On CPU the known XLA:CPU reassociation hazard applies to FUSED df
     chains; a single op is small enough to stay intact — this is a

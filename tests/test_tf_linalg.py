@@ -6,7 +6,7 @@ finding that motivated this module: at beta=8 the f64 stabilized chain
 itself carries ~6.7e-10 error vs gold (measured at n=64, nt=80 — the
 workload tests/test_df_linalg.py uses as its "oracle"), so a sub-1e-10
 tier can only be validated against true arbitrary precision.  Measured
-on that chain (TPU, jitted):
+on that chain:
 
     f64 stabilized chain   6.7e-10   (the reference's own numerics grade)
     df32 chain             9.2e-9

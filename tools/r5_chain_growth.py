@@ -24,8 +24,8 @@ and at every fold k score
 
 An exponential errG curve pins the amplification; a step identifies a
 single guilty fold; d_rel-vs-errG says whether the damage sits in the
-ladder or in L/R.  Run on TPU (the chain is the chip's own XLA-fallback
-arithmetic at n>512; folds are jitted, ~s each).
+ladder or in L/R.  Run on the GPU (folds are jitted there; on the CPU
+they run eagerly, see platform.jit_multiword).
 
 Usage: python tools/r5_chain_growth.py --n 1024 --beta 16 --nt 320
 """
@@ -75,8 +75,8 @@ def main():
     Bs = _b_chain(rng, args.n, args.nt, args.beta)
     n = args.n
     cpu0 = jax.devices("cpu")[0]
-    on_cpu = jax.default_backend() == "cpu"
-    jj = (lambda f: f) if on_cpu else jax.jit
+    from dqmc_tpu import platform
+    jj = jax.jit if platform.jit_multiword() else (lambda f: f)
     fold_first = jj(functools.partial(df_linalg.to_ldr, nm=nm))
     fold_next = jj(functools.partial(df_linalg.mat_mul_ldr, nm=nm))
 
